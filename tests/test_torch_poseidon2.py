@@ -1,0 +1,148 @@
+"""The port's Poseidon2, Merkle trees and grinding against the JAX package.
+
+Tolerance 0.  The Pallas permutation runs in interpret mode, as
+``tests/test_ops_kernels.py`` runs it on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zkir_tpu.ops import merkle as rm
+from zkir_tpu.ops import poseidon2 as rp
+from zkir_tpu.prover.challenger import Challenger as RefChallenger
+from zkir_tpu_torch.convert import poseidon2_params_from_reference
+from zkir_tpu_torch.ops import merkle as pm
+from zkir_tpu_torch.ops import poseidon2 as pp
+from zkir_tpu_torch.ops.poseidon2_ref import (bytes_to_field_elements,
+                                              poseidon2_compress,
+                                              poseidon2_sponge)
+from zkir_tpu_torch.prover.challenger import Challenger
+
+P = (1 << 31) - 1
+
+
+def words(seed, shape):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, P, shape, dtype=np.uint32)
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def host(x):
+    return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x,
+                      dtype=np.uint32)
+
+
+def test_permute_matches_pallas_and_jnp():
+    states = words(1, (8, 16))
+    states[0] = 0
+    states[1] = P - 1
+    got = host(pp.poseidon2_permute_batch(t(states)))
+    pallas = host(rp.poseidon2_permute_pallas(jnp.asarray(states),
+                                              interpret=True))
+    want = host(rp.poseidon2_permute_batch(jnp.asarray(states)))
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pinned_kats():
+    """The known-answer vectors of docs/POSEIDON2.md through the batched
+    permutation and the row sponge."""
+    out = host(pp.poseidon2_permute_batch(t([[0] * 16, list(range(16))])))
+    assert out[0, :4].tolist() == [1304355236, 1786230697, 1252711109,
+                                   1945258516]
+    assert out[1, :4].tolist() == [1663501927, 1148442227, 887313724,
+                                   52423570]
+    abc = bytes_to_field_elements(b"abc")
+    assert host(pm.hash_rows(t([abc])))[0, :4].tolist() == [
+        1149247174, 988940175, 1305207541, 208049065]
+
+
+@pytest.mark.parametrize("width", [16, 13])
+def test_hash_rows(width):
+    """A width that is a multiple of 8 still gets the 1||0* padding."""
+    m = words(2 + width, (32, width))
+    np.testing.assert_array_equal(host(pm.hash_rows(t(m))),
+                                  host(rm.hash_rows(jnp.asarray(m))))
+
+
+def test_sponge_and_compress_batch():
+    """Against the scalar reference (poseidon2_ref), as
+    tests/test_ops_kernels.py checks the jnp versions."""
+    elements = [int(x) for x in words(3, 11)]
+    padded = elements + [1] + [0] * 4                   # 1||0* to 16
+    blocks = t([padded]).reshape(1, 2, 8)
+    assert host(pp.poseidon2_sponge_batch(blocks))[0].tolist() == \
+        poseidon2_sponge(elements)
+    left, right = words(4, (8, 8)), words(5, (8, 8))
+    got = host(pp.poseidon2_compress_batch(t(left), t(right)))
+    for i in range(8):
+        assert got[i].tolist() == poseidon2_compress(
+            left[i].tolist(), right[i].tolist())
+
+
+def test_build_tree_fused_and_paths():
+    leaves = words(6, (8, 8))
+    got = pm.to_host(pm.build_tree_fused(t(leaves)))
+    want = rm.to_host(rm.build_tree_fused(jnp.asarray(leaves)))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    root = pm.root(got)
+    for idx in (0, 5, 7):
+        path = pm.open_path(got, idx)
+        for a, b in zip(path, rm.open_path(want, idx)):
+            np.testing.assert_array_equal(a, b)
+        assert pm.verify_path(root, idx, got[0][idx], path)
+        assert not pm.verify_path(root, idx, got[0][idx ^ 1], path)
+
+    # The batched row + path check against the scalar host functions on
+    # a tree of hashed rows: honest openings, a changed row, a short path.
+    rows = words(7, (8, 13))
+    levels = pm.to_host(pm.build_tree(pm.hash_rows(t(rows))))
+    root = pm.root(levels)
+    idx = [0, 5, 7, 5, 2]
+    opened = [rows[i].tolist() for i in idx]
+    opened[3][0] = (opened[3][0] + 1) % P
+    paths = [pm.open_path(levels, i) for i in idx]
+    paths[4] = paths[4][:-1]
+    want = [pm.verify_path(root, i, pm.hash_row_host(r), p)
+            for i, r, p in zip(idx, opened, paths)]
+    assert want == [True, True, True, False, False]
+    assert pm.verify_rows(root, idx, opened, paths, 3) == want
+    with pytest.raises(AssertionError):
+        pm.build_tree(t(leaves[:6]))
+
+
+@pytest.mark.parametrize("bits", [1, 8])
+def test_grind_nonce(bits):
+    """Same transcript state, same lowest hitting nonce, same next draw.
+    The trial batch (2^(bits+2) states) differs per case; the nonce does
+    not depend on it.  (bits=1 reuses the [8, 16] permutation compiled
+    above.)"""
+    ref, port = RefChallenger(), Challenger()
+    for c in (ref, port):
+        c.observe_many([7, 11, bits])
+        c.sample()
+    nonce = port.grind(bits)
+    assert nonce == ref.grind(bits)
+    assert port.sample() == ref.sample()
+    verifier = Challenger()
+    verifier.observe_many([7, 11, bits])
+    verifier.sample()
+    assert verifier.check_pow(nonce, bits)
+
+
+def test_params_from_reference():
+    external, internal, dm1 = rp._params_np()
+    got = poseidon2_params_from_reference(external, internal, dm1)
+    for g, w in zip(got, (external, internal, dm1)):
+        np.testing.assert_array_equal(host(g), w)
+    bad = internal.copy()
+    bad[3] ^= 1
+    with pytest.raises(ValueError):
+        poseidon2_params_from_reference(external, bad, dm1)

@@ -1,0 +1,21 @@
+"""zkir_tpu_torch: the zkir-tpu prover ported to PyTorch and CUDA (Hopper).
+
+A second package beside ``zkir_tpu`` (the JAX reference, which stays as it
+is).  It imports ``torch`` and numpy, never ``jax`` and never ``zkir_tpu``,
+and mirrors the reference's layout so that each module's counterpart is
+easy to find:
+
+- ``zkir_tpu_torch.spec``    — host copies: the M31 scalar field, memory
+  layout constants.
+- ``zkir_tpu_torch.ops``     — field layer (CUDA kernel K1), Poseidon2
+  (CUDA kernel K2), NTT, QM31, Merkle trees, on int64 tensors.
+- ``zkir_tpu_torch.prover``  — trace matrix, constraints, FRI, and
+  ``prove_trace``/``verify_trace`` (``range_lookup=False`` path).
+- ``zkir_tpu_torch.convert`` — carries state over from the JAX package
+  (trace dicts, Poseidon2 constants, proof JSON).
+
+CUDA sources live in ``csrc/``; ``_kernels`` builds them with ``nvcc`` at
+first use on a GPU.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,135 @@
+"""Build, load and launch the port's CUDA kernels.
+
+All of ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, at first use, under
+``zkir_tpu_torch/_build/`` (git-ignored).  The library's file name holds
+a hash of the sources and flags, so an edited source builds anew.  It is
+loaded with ``ctypes``: pointers and the stream pass as ``c_void_p``,
+lengths as ``c_longlong``.
+
+Every C entry point launches on the given stream (PyTorch's current
+one), does not synchronise, and returns ``cudaGetLastError()``; ``launch``
+raises if that is not 0.  ``launches`` holds one plain count per kernel,
+raised by one where the kernel is launched and nowhere else.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine need not have ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_N = ctypes.c_longlong
+_I = ctypes.c_int
+# C entry point -> argument types (the stream is appended to each).
+_SIGNATURES = {
+    "m31_binary": (_P, _P, _P, _N, _I),
+    "p2_permute": (_P, _P, _N),
+    "p2_sponge_rows": (_P, _P, _N, _N, _I),
+    "p2_compress_level": (_P, _P, _N),
+}
+
+launches = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD / f"libzkir_kernels.{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the library unless a build of these exact sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    import numpy as np
+    import torch
+
+    torch.cuda.init()
+    lib = ctypes.CDLL(str(build()))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*args, _P]
+        fn.restype = _I
+    lib.zk_error_string.argtypes = [_I]
+    lib.zk_error_string.restype = ctypes.c_char_p
+    lib.p2_set_constants.argtypes = [_P, _P, _P]
+    lib.p2_set_constants.restype = _I
+
+    from .ops.poseidon2 import _params_np
+
+    external, internal, dm1 = (np.ascontiguousarray(a, dtype=np.uint32)
+                               for a in _params_np())
+    _check(lib, lib.p2_set_constants(external.ctypes.data,
+                                     internal.ctypes.data, dm1.ctypes.data),
+           "p2_set_constants")
+    _lib = lib
+    return lib
+
+
+def _check(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.zk_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
+
+
+def launch(name: str, *args) -> None:
+    """Launch C entry point ``name`` on the current stream and count it."""
+    import torch
+
+    lib = _load()
+    stream = torch.cuda.current_stream().cuda_stream
+    _check(lib, getattr(lib, name)(*args, stream), name)
+    launches[name] += 1

@@ -1,0 +1,112 @@
+"""Fiat-Shamir transcript over a Poseidon2-M31 duplex sponge.
+
+Deterministic on both prover and verifier: every observed value (commitment
+digests, folded-layer roots, final polynomial) feeds the sponge; challenges
+(random field elements, query indices) are squeezed from it.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List
+
+from ..spec.field import M31_PRIME
+from ..ops.poseidon2_ref import RATE, WIDTH, poseidon2_permute
+
+
+class Challenger:
+    def __init__(self, device="cpu"):
+        # Where grind() runs its trial permutations; nothing else in the
+        # transcript touches a device.
+        self.device = device
+        self._state = [0] * WIDTH
+        self._absorb_buf: List[int] = []
+        self._squeeze_buf: List[int] = []
+
+    def observe(self, value: int) -> None:
+        self._squeeze_buf.clear()
+        self._absorb_buf.append(int(value) % M31_PRIME)
+        if len(self._absorb_buf) == RATE:
+            self._duplex()
+
+    def observe_many(self, values: Iterable[int]) -> None:
+        for v in values:
+            self.observe(v)
+
+    def _duplex(self) -> None:
+        for i, v in enumerate(self._absorb_buf):
+            self._state[i] = (self._state[i] + v) % M31_PRIME
+        self._absorb_buf.clear()
+        self._state = poseidon2_permute(self._state)
+        self._squeeze_buf = list(self._state[:RATE])
+
+    def sample(self) -> int:
+        """Squeeze one M31 challenge."""
+        if self._absorb_buf or not self._squeeze_buf:
+            self._duplex()
+        return self._squeeze_buf.pop()
+
+    def sample_cm31(self):
+        return (self.sample(), self.sample())
+
+    def sample_qm31(self):
+        """Squeeze one QM31 challenge (4 M31 draws) — the extension the
+        batching/DEEP/FRI/LogUp challenges live in (ops/qm31.py)."""
+        return (self.sample(), self.sample(), self.sample(), self.sample())
+
+    def sample_bits(self, bits: int) -> int:
+        """Uniform integer in [0, 2^bits) (bits <= 30 per draw)."""
+        assert bits <= 30
+        return self.sample() & ((1 << bits) - 1)
+
+    def grind(self, bits: int) -> int:
+        """Proof-of-work grinding: find and absorb a nonce such that the
+        next ``sample_bits(bits)`` draw is zero, then consume that draw.
+
+        Forces ~2^bits Poseidon2 permutations of prover work per
+        transcript fork, adding ``bits`` to the soundness budget
+        (ethSTARK-style grinding).  The search runs as batched device
+        permutations — one trial is one row of ``poseidon2_permute_batch``
+        on a copy of the sponge state with the nonce absorbed at rate
+        position 0.  The lowest hitting nonce wins, so the batch size
+        never changes the result."""
+        if bits == 0:
+            return 0
+        import numpy as np
+        import torch
+
+        from ..ops.poseidon2 import poseidon2_permute_batch
+
+        if self._absorb_buf:
+            self._duplex()  # trials must share the post-permute state
+        base = np.asarray(self._state, dtype=np.uint32)
+        mask = (1 << bits) - 1
+        batch = min(1 << (bits + 2), 1 << 16)
+        start = 0
+        while start < (1 << 34):  # unbounded in expectation; hard stop
+            nonces = np.arange(start, start + batch, dtype=np.uint64)
+            states = np.broadcast_to(base, (batch, WIDTH)).copy()
+            states[:, 0] = ((base[0] + nonces) % M31_PRIME).astype(np.uint32)
+            out = poseidon2_permute_batch(
+                torch.from_numpy(states.astype(np.int64)).to(self.device)
+            ).cpu().numpy()
+            # sample() pops the squeeze buffer from the end: the first
+            # draw after a duplex is state[RATE - 1].
+            hits = np.nonzero((out[:, RATE - 1] & mask) == 0)[0]
+            if hits.size:
+                nonce = int(nonces[hits[0]])
+                self.observe(nonce)
+                check = self.sample_bits(min(bits, 30))
+                assert check == 0, "grind/duplex mismatch"
+                return nonce
+            start += batch
+        raise RuntimeError("grinding search exhausted")  # pragma: no cover
+
+    def check_pow(self, nonce: int, bits: int) -> bool:
+        """Verifier side of ``grind``: absorb the claimed nonce and check
+        the next draw is zero."""
+        if bits == 0:
+            return True
+        if self._absorb_buf:
+            self._duplex()  # same framing as grind(): nonce absorbed alone
+        self.observe(int(nonce))
+        return self.sample_bits(min(bits, 30)) == 0

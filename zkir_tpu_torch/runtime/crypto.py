@@ -1,0 +1,284 @@
+"""Digests of the crypto syscalls (host scalar code).
+
+The trace builder (``prover/trace.py``) needs each syscall's digest to
+fill the crypto block.  These are the from-scratch digest functions of
+``zkir_tpu/runtime/crypto.py``, copied without the oracle memory and
+witness plumbing so that the port needs nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+SHA256_K = [
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
+    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
+    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
+    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
+    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
+    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+]
+
+SHA256_H0 = [
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+]
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotr(x: int, n: int) -> int:
+    return ((x >> n) | (x << (32 - n))) & _M32
+
+
+def _big_sigma0(x):
+    return _rotr(x, 2) ^ _rotr(x, 13) ^ _rotr(x, 22)
+
+
+def _big_sigma1(x):
+    return _rotr(x, 6) ^ _rotr(x, 11) ^ _rotr(x, 25)
+
+
+def _small_sigma0(x):
+    return _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+
+
+def _small_sigma1(x):
+    return _rotr(x, 17) ^ _rotr(x, 19) ^ (x >> 10)
+
+
+def _ch(x, y, z):
+    return (x & y) ^ (~x & z) & _M32
+
+
+def _maj(x, y, z):
+    return (x & y) ^ (x & z) ^ (y & z)
+
+
+def sha256_pad(message: bytes) -> bytes:
+    """Single-pass Merkle-Damgard padding (crypto.rs:108-124)."""
+    padded = bytearray(message)
+    padded.append(0x80)
+    while len(padded) % 64 != 56:
+        padded.append(0)
+    padded += (len(message) * 8).to_bytes(8, "big")
+    return bytes(padded)
+
+
+def sha256_schedule(block_words: List[int]) -> List[int]:
+    w = list(block_words) + [0] * 48
+    for i in range(16, 64):
+        w[i] = (
+            _small_sigma1(w[i - 2]) + w[i - 7]
+            + _small_sigma0(w[i - 15]) + w[i - 16]
+        ) & _M32
+    return w
+
+
+def sha256_compress(block_words: List[int], state: List[int]) -> List[int]:
+    w = sha256_schedule(block_words)
+    a, b, c, d, e, f, g, h = state
+    for i in range(64):
+        t1 = (h + _big_sigma1(e) + _ch(e, f, g) + SHA256_K[i] + w[i]) & _M32
+        t2 = (_big_sigma0(a) + _maj(a, b, c)) & _M32
+        h, g, f = g, f, e
+        e = (d + t1) & _M32
+        d, c, b = c, b, a
+        a = (t1 + t2) & _M32
+    return [(s + v) & _M32 for s, v in zip(state, [a, b, c, d, e, f, g, h])]
+
+
+def sha256_digest(message: bytes) -> bytes:
+    """Full multi-block SHA-256 (used for > 1 block; matches hashlib)."""
+    padded = sha256_pad(message)
+    state = list(SHA256_H0)
+    for off in range(0, len(padded), 64):
+        block = [int.from_bytes(padded[off + 4 * i: off + 4 * i + 4], "big")
+                 for i in range(16)]
+        state = sha256_compress(block, state)
+    return b"".join(s.to_bytes(4, "big") for s in state)
+
+_KECCAK_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+_KECCAK_ROT = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+
+_M64 = (1 << 64) - 1
+
+
+def _rotl64(x: int, n: int) -> int:
+    n %= 64
+    return ((x << n) | (x >> (64 - n))) & _M64
+
+
+def keccak_f1600(state: List[List[int]]) -> None:
+    """In-place keccak-f[1600] permutation on a 5x5 lane array."""
+    for rc in _KECCAK_RC:
+        # theta
+        c = [state[x][0] ^ state[x][1] ^ state[x][2] ^ state[x][3] ^ state[x][4]
+             for x in range(5)]
+        d = [c[(x - 1) % 5] ^ _rotl64(c[(x + 1) % 5], 1) for x in range(5)]
+        for x in range(5):
+            for y in range(5):
+                state[x][y] ^= d[x]
+        # rho + pi
+        b = [[0] * 5 for _ in range(5)]
+        for x in range(5):
+            for y in range(5):
+                b[y][(2 * x + 3 * y) % 5] = _rotl64(state[x][y], _KECCAK_ROT[x][y])
+        # chi
+        for x in range(5):
+            for y in range(5):
+                state[x][y] = b[x][y] ^ ((~b[(x + 1) % 5][y]) & b[(x + 2) % 5][y])
+        # iota
+        state[0][0] ^= rc
+
+
+def keccak256_digest(message: bytes) -> bytes:
+    """Keccak-256 (original Keccak padding 0x01, rate 1088 bits)."""
+    rate = 136
+    state = [[0] * 5 for _ in range(5)]
+
+    padded = bytearray(message)
+    padded.append(0x01)
+    while len(padded) % rate != 0:
+        padded.append(0)
+    padded[-1] |= 0x80
+
+    for off in range(0, len(padded), rate):
+        block = padded[off: off + rate]
+        for i in range(rate // 8):
+            lane = int.from_bytes(block[8 * i: 8 * i + 8], "little")
+            x, y = i % 5, i // 5
+            state[x][y] ^= lane
+        keccak_f1600(state)
+
+    out = bytearray()
+    for i in range(4):  # 32 bytes = 4 lanes
+        x, y = i % 5, i // 5
+        out += state[x][y].to_bytes(8, "little")
+    return bytes(out)
+
+
+_B3_IV = [
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+]
+_B3_MSG_PERM = [2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8]
+
+_B3_CHUNK_START = 1 << 0
+_B3_CHUNK_END = 1 << 1
+_B3_PARENT = 1 << 2
+_B3_ROOT = 1 << 3
+
+_B3_BLOCK_LEN = 64
+_B3_CHUNK_LEN = 1024
+
+
+def _b3_g(state, a, b, c, d, mx, my):
+    state[a] = (state[a] + state[b] + mx) & _M32
+    state[d] = _rotr(state[d] ^ state[a], 16)
+    state[c] = (state[c] + state[d]) & _M32
+    state[b] = _rotr(state[b] ^ state[c], 12)
+    state[a] = (state[a] + state[b] + my) & _M32
+    state[d] = _rotr(state[d] ^ state[a], 8)
+    state[c] = (state[c] + state[d]) & _M32
+    state[b] = _rotr(state[b] ^ state[c], 7)
+
+
+def _b3_compress(cv, block_words, counter, block_len, flags):
+    state = list(cv) + list(_B3_IV[:4]) + [
+        counter & _M32, (counter >> 32) & _M32, block_len, flags,
+    ]
+    m = list(block_words)
+    for r in range(7):
+        _b3_g(state, 0, 4, 8, 12, m[0], m[1])
+        _b3_g(state, 1, 5, 9, 13, m[2], m[3])
+        _b3_g(state, 2, 6, 10, 14, m[4], m[5])
+        _b3_g(state, 3, 7, 11, 15, m[6], m[7])
+        _b3_g(state, 0, 5, 10, 15, m[8], m[9])
+        _b3_g(state, 1, 6, 11, 12, m[10], m[11])
+        _b3_g(state, 2, 7, 8, 13, m[12], m[13])
+        _b3_g(state, 3, 4, 9, 14, m[14], m[15])
+        if r != 6:
+            m = [m[p] for p in _B3_MSG_PERM]
+    return [(state[i] ^ state[i + 8]) & _M32 for i in range(8)], [
+        (state[i + 8] ^ cv[i]) & _M32 for i in range(8)
+    ]
+
+
+def _b3_words(block: bytes) -> List[int]:
+    block = block + b"\x00" * (_B3_BLOCK_LEN - len(block))
+    return [int.from_bytes(block[4 * i: 4 * i + 4], "little") for i in range(16)]
+
+
+def _b3_chunk_output(chunk: bytes, chunk_counter: int):
+    """Compress one chunk; returns (cv, last_block_words, block_len, flags)
+    where the final block is left un-finalized for possible ROOT flagging."""
+    blocks = [chunk[i: i + _B3_BLOCK_LEN]
+              for i in range(0, max(len(chunk), 1), _B3_BLOCK_LEN)] or [b""]
+    cv = list(_B3_IV)
+    for i, block in enumerate(blocks[:-1]):
+        flags = _B3_CHUNK_START if i == 0 else 0
+        cv, _ = _b3_compress(cv, _b3_words(block), chunk_counter,
+                             _B3_BLOCK_LEN, flags)
+    last = blocks[-1]
+    flags = _B3_CHUNK_END
+    if len(blocks) == 1:
+        flags |= _B3_CHUNK_START
+    return cv, _b3_words(last), len(last), flags, chunk_counter
+
+
+def blake3_digest(message: bytes, out_len: int = 32) -> bytes:
+    """BLAKE3 hash (default 32-byte output) with full tree hashing."""
+    chunks = [message[i: i + _B3_CHUNK_LEN]
+              for i in range(0, max(len(message), 1), _B3_CHUNK_LEN)] or [b""]
+
+    # Produce chunk outputs; the last pending output may become the root.
+    outputs = [_b3_chunk_output(chunk, i) for i, chunk in enumerate(chunks)]
+
+    # Binary tree merge (left-full tree, per BLAKE3 spec).
+    while len(outputs) > 1:
+        merged = []
+        for i in range(0, len(outputs) - 1, 2):
+            lcv, lwords, llen, lflags, lctr = outputs[i]
+            lcv_final, _ = _b3_compress(lcv, lwords, lctr, llen, lflags)
+            rcv, rwords, rlen, rflags, rctr = outputs[i + 1]
+            rcv_final, _ = _b3_compress(rcv, rwords, rctr, rlen, rflags)
+            block_words = lcv_final + rcv_final
+            merged.append((list(_B3_IV), block_words, _B3_BLOCK_LEN,
+                           _B3_PARENT, 0))
+        if len(outputs) % 2 == 1:
+            merged.append(outputs[-1])
+        outputs = merged
+
+    cv, words, block_len, flags, ctr = outputs[0]
+    # Root output with extendable output counter.
+    out = bytearray()
+    counter = 0
+    while len(out) < out_len:
+        h, extra = _b3_compress(cv, words, counter, block_len,
+                                flags | _B3_ROOT)
+        for word in h + extra:
+            out += word.to_bytes(4, "little")
+        counter += 1
+    return bytes(out[:out_len])
