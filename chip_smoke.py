@@ -10,27 +10,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a);
-3. hold each kernel against its plain torch version on the card, for
-   exact equality, at the main path's shapes (timed with CUDA events)
-   and at a few more, plus the pinned Poseidon2 known-answer vectors;
+3. hold each kernel entry point against its plain torch version on the
+   card, for exact equality, at the main path's shapes (timed with CUDA
+   events, beside the least time the card could take) and at a few more
+   (strided, broadcast and immediate operands; short, real and coset
+   transforms of one, two and three passes), plus the pinned Poseidon2
+   known-answer vectors;
 4. prove the small golden traces on the card and require proofs equal
    (after a JSON round trip) to the stored reference proofs;
 5. prove the 2^16-row benchmark trace (493 columns, production
    ``FriConfig()``) twice, cold and warm; the port's verifier must
-   accept the proof, and every kernel must have been launched by it.
+   accept the proof, every kernel must have been launched by it, and
+   the NTT family must launch nothing but ``cm31_ntt``.
 
 The line before the last is a JSON object with one entry per kernel
-(launches in the cold 2^16 prove, max |kernel - plain|, kernel and plain
-milliseconds); the line before it holds the prove's timings; the last
-line is ``{"ok": true, "device": {...}}``.  The script imports
+entry point (launches in the cold 2^16 prove, max |kernel - plain|,
+kernel and plain milliseconds, the bound and what sets it); the line
+before it holds the prove's timings, stage times and the further timed
+cases; the last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -40,10 +48,25 @@ FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 P = (1 << 31) - 1
 SEED = 20261016
 
+# The card's published peaks (NVIDIA H100 SXM data sheet and the Hopper
+# architecture white paper): device memory rate, and the INT32 rate outside
+# the tensor cores, which is also the rate at which the SMs start
+# instructions (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 33.5e12
+# Instructions one thread executes for one Poseidon2 permutation in the
+# built kernel: zkir_tpu_torch/tools/sass_count.py on permute_kernel's SASS
+# (1,760 static instructions; round loops of 4, 14 and 4 trips).
+P2_INSTR_PER_PERMUTATION = 8077
+
 # C entry point -> (source, the TPU kernel it replaces).
 KERNELS = {
     "m31_binary": ("zkir_tpu_torch/csrc/m31_binary.cu",
                    "zkir_tpu/ops/field_ops.py:190"),
+    "cm31_binary": ("zkir_tpu_torch/csrc/m31_binary.cu",
+                    "zkir_tpu/ops/field_ops.py:190"),
+    "cm31_ntt": ("zkir_tpu_torch/csrc/ntt.cu",
+                 "zkir_tpu/ops/field_ops.py:190"),
     "p2_permute": ("zkir_tpu_torch/csrc/poseidon2.cu",
                    "zkir_tpu/ops/poseidon2.py:261"),
     "p2_sponge_rows": ("zkir_tpu_torch/csrc/poseidon2.cu",
@@ -80,26 +103,195 @@ def words(gen, shape):
                          dtype=torch.int64)
 
 
-def compare(name, kernel_fn, plain_fn, iters, results):
+def max_abs_err(name, got, want) -> int:
+    """max |got - want| over one tensor or a tuple of them; 0 required."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g - w).abs().max().item()))
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version, max |diff| = {err}")
+    return err
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the field's integer
+    operations at the integer rate, whichever is longer."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def compare(name, kernel_fn, plain_fn, iters, results, *, n_bytes, n_ops,
+            plain_iters=None, key=None):
     """Run the kernel's wrapper and its plain version on the same card
-    tensors; require equal words; time both."""
+    tensors; require equal words; time both.  No one PyTorch call
+    computes any of these functions, so ``library_ms`` is null."""
     import torch
 
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
-    if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                             f"{tuple(want.shape)}")
-    err = int((got - want).abs().max().item()) if got.numel() else 0
-    if err != 0:
-        raise AssertionError(f"{name}: kernel differs from its plain "
-                             f"version, max |diff| = {err}")
+    err = max_abs_err(name, got, want)
+    shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
+    del got, want
     ms = cuda_ms(kernel_fn, iters)
-    plain_ms = cuda_ms(plain_fn, iters)
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    log(f"{name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"({tuple(got.shape)})")
+    plain_ms = cuda_ms(plain_fn, plain_iters or iters)
+    results[key or name] = {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, **bound(n_bytes, n_ops),
+                            "library_ms": None}
+    r = results[key or name]
+    log(f"{key or name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({shape})")
+
+
+def equal(name, got, want) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    max_abs_err(name, got, want)
+    log(f"{name}: exact")
+
+
+def phase_binary_layouts(results, gen) -> None:
+    """K1's two entry points on broadcast, strided and immediate operands
+    (nothing is expanded or copied before a launch), timed at the main
+    path's CM31 shapes."""
+    import torch
+
+    from zkir_tpu_torch.ops import field_ops as f
+
+    edge = torch.tensor([0, 1, P - 1], device="cuda", dtype=torch.int64)
+    plain = {"add": f.add_plain, "sub": f.sub_plain, "mul": f.mul_plain}
+    cplain = {"add": f.cm31_add_plain, "sub": f.cm31_sub_plain,
+              "mul": f.cm31_mul_plain}
+    m = words(gen, (37, 1024))
+    col = words(gen, (37, 1))
+    for op in ("add", "sub", "mul"):
+        fn = getattr(f, f"m31_{op}")
+        equal(f"m31_binary {op} broadcast [37,1024]x[37,1]",
+              fn(m, col), plain[op](m, col))
+        equal(f"m31_binary {op} scalar", fn(m, P - 2), plain[op](m, P - 2))
+        equal(f"m31_binary {op} scalar first",
+              fn(12345, m), plain[op](12345, m))
+
+    # CM31: every edge word against every other in all four coordinates.
+    e4 = torch.cartesian_prod(edge, edge, edge, edge)
+    a = (torch.cat([e4[:, 0], words(gen, (1 << 18,))[:-81]]),
+         torch.cat([e4[:, 1], words(gen, (1 << 18,))[:-81]]))
+    b = (torch.cat([e4[:, 2], words(gen, (1 << 18,))[:-81]]),
+         torch.cat([e4[:, 3], words(gen, (1 << 18,))[:-81]]))
+    sq = (words(gen, (512, 512)), words(gen, (512, 512)))
+    wide = (words(gen, (64, 4096)), words(gen, (64, 4096)))
+    for op in ("add", "sub", "mul"):
+        for what, x, y in (
+                ("edge words, [2^18]", a, b),
+                ("constant pair", a, (P - 1, 12345)),
+                ("constant pair first", (7, 0), b),
+                ("transposed", (sq[0].T, sq[1].T), sq),
+                ("strided slice", (wide[0][:, ::8], wide[1][:, 1::8]),
+                 (sq[0][:64], sq[1][:64])),
+                ("odd offset", (a[0][1:], a[1][1:]), (b[0][:-1], b[1][1:])),
+                ("rank 4", (wide[0].reshape(4, 16, 64, 64)[:, :15, ::2, ::2],
+                            wide[1].reshape(4, 16, 64, 64)[:, 1:, 1::2, ::2]),
+                 (sq[0][:32, :32], sq[1][:32, :32]))):
+            equal(f"cm31_binary {op}, {what}",
+                  f.cm31_binary(x, y, op), cplain[op](x, y))
+    try:
+        t5 = wide[0].reshape(4, 4, 4, 64, 64)[::2, ::2, ::2, ::2, ::2]
+        f.m31_add(t5, t5.transpose(0, 1))
+    except ValueError as exc:
+        log(f"m31_binary refuses a rank-5 layout: {str(exc)[:60]}...")
+    else:
+        raise AssertionError("a rank-5 layout was not refused")
+    n = a[0].numel()
+    compare("cm31_binary", lambda: f.cm31_binary(a, b, "mul"),
+            lambda: f.cm31_mul_plain(a, b), 50, results,
+            n_bytes=48 * n, n_ops=6 * n, key="cm31_binary [2^18]")
+    del a, b, sq, wide
+    # The combine and quotient contraction: [497, 2^18] columns times a
+    # [497, 1] column of powers.
+    x = (words(gen, (497, 1 << 18)), words(gen, (497, 1 << 18)))
+    pw = (words(gen, (497, 1)), words(gen, (497, 1)))
+    n = x[0].numel()
+    compare("cm31_binary", lambda: f.cm31_binary(x, pw, "mul"),
+            lambda: f.cm31_mul_plain(x, pw), 5, results,
+            n_bytes=32 * n + 16 * 497, n_ops=6 * n)
+
+
+def phase_ntt(results, gen) -> None:
+    """``cm31_ntt`` against the plain torch network: the prover's three
+    shapes timed, then one-, two- and three-pass sizes, short and real
+    inputs and the coset edges for equality."""
+    import torch
+
+    from zkir_tpu_torch.ops import ntt
+    from zkir_tpu_torch.prover.prover import _coset_shift
+    from zkir_tpu_torch.spec.field import m31_inv
+
+    shift = _coset_shift()
+
+    def lde_plain(re, log_n, log_blowup):
+        c = ntt.ntt_plain(re, None, log_n, True, scale=m31_inv(1 << log_n))
+        return ntt.ntt_plain(c[0], c[1], log_n + log_blowup, False, pre=shift)
+
+    # Per butterfly: one CM31 product (4 products, 2 sums) and 4 sums.
+    def ntt_ops(batch, log_n):
+        return batch * (1 << (log_n - 1)) * log_n * 10
+
+    cols = words(gen, (493, 1 << 16))
+    compare("cm31_ntt", lambda: ntt.lde(cols, None, 16, 2, shift=shift),
+            lambda: lde_plain(cols, 16, 2), 5, results, plain_iters=1,
+            n_bytes=8 * 493 * ((1 << 16) + 2 * (1 << 18)),
+            n_ops=ntt_ops(493, 16) + ntt_ops(493, 18),
+            key="lde [493, 2^16] -> 2^18 (2 x cm31_ntt)")
+    compare("cm31_ntt", lambda: ntt.intt(cols, None, 16),
+            lambda: ntt.ntt_plain(cols, None, 16, True,
+                                  scale=m31_inv(1 << 16)), 5, results,
+            plain_iters=1, n_bytes=8 * 3 * 493 * (1 << 16),
+            n_ops=ntt_ops(493, 16), key="cm31_ntt inverse [493, 2^16]")
+    del cols
+    big = (words(gen, (493, 1 << 18)), words(gen, (493, 1 << 18)))
+    compare("cm31_ntt", lambda: ntt.ntt(big[0], big[1], 18),
+            lambda: ntt.ntt_plain(big[0], big[1], 18, False), 5, results,
+            plain_iters=1, n_bytes=8 * 4 * 493 * (1 << 18),
+            n_ops=ntt_ops(493, 18))
+    del big
+    torch.cuda.empty_cache()
+
+    for log_n, batch in ((1, 1), (2, 3), (5, 1), (5, 3), (10, 3), (12, 1),
+                         (13, 1), (13, 3), (16, 3), (19, 1)):
+        n = 1 << log_n
+        re, im = words(gen, (batch, n)), words(gen, (batch, n))
+        for inverse in (False, True):
+            equal(f"cm31_ntt 2^{log_n} x {batch} inverse={inverse}",
+                  ntt.cm31_ntt(re, im, log_n, inverse),
+                  ntt.ntt_plain(re, im, log_n, inverse))
+        short = re[:, :max(n // 4, 1)]
+        equal(f"cm31_ntt 2^{log_n} x {batch} short real input, pre, scale",
+              ntt.cm31_ntt(short, None, log_n, False, pre=shift, scale=3),
+              ntt.ntt_plain(short, None, log_n, False, pre=shift, scale=3))
+    re, im = words(gen, (2, 1 << 18)), words(gen, (2, 1 << 18))
+    for name in ("coset_ntt", "coset_intt"):
+        plain = {"coset_ntt": lambda: ntt.ntt_plain(re, im, 18, False,
+                                                    pre=shift),
+                 "coset_intt": lambda: ntt.ntt_plain(
+                     re, im, 18, True, post=ntt.cm31_inv_scalar(shift),
+                     scale=m31_inv(1 << 18))}[name]
+        equal(f"{name} [2, 2^18]",
+              getattr(ntt, name)(re, im, 18, shift=shift), plain())
+    one = re[0, :1 << 16]       # a 1-D slice, as the quotient's chunks are
+    equal("coset_ntt of a 2^16 slice into 2^18",
+          ntt.coset_ntt(one, im[0, :1 << 16], 18, shift=shift),
+          ntt.ntt_plain(one, im[0, :1 << 16], 18, False, pre=shift))
 
 
 def phase_kernels(results) -> None:
@@ -120,26 +312,36 @@ def phase_kernels(results) -> None:
     a = torch.cat([edge.repeat_interleave(3), words(gen, (1 << 24,))])
     b = torch.cat([edge.repeat(3), words(gen, (1 << 24,))])
     for op, plain in (("add", f.add_plain), ("sub", f.sub_plain)):
-        got = getattr(f, f"m31_{op}")(a, b)
-        if not torch.equal(got, plain(a, b)):
-            raise AssertionError(f"m31_binary {op} differs from plain")
-        log(f"m31_binary {op}: exact")
+        equal(f"m31_binary {op}", getattr(f, f"m31_{op}")(a, b), plain(a, b))
+    n = a.numel()
     compare("m31_binary", lambda: f.m31_mul(a, b),
-            lambda: f.mul_plain(a, b), 20, results)
+            lambda: f.mul_plain(a, b), 20, results,
+            n_bytes=24 * n, n_ops=n)
+    del a, b
+    phase_binary_layouts(results, gen)
+    phase_ntt(results, gen)
 
     # K2 at the main path's shapes: a grinding batch, the trace-commit
     # row sponge (2^18 rows of 2 x 493 words), the first tree level.
     states = words(gen, (1 << 16, 16))
+    # K2's operations: one permutation per state, per 8-word rate block
+    # of a padded row (986 words + the padding word -> 124), per parent.
+    perm = P2_INSTR_PER_PERMUTATION
     compare("p2_permute", lambda: p2.poseidon2_permute_batch(states),
-            lambda: p2.permute_plain(states), 10, results)
+            lambda: p2.permute_plain(states), 10, results,
+            n_bytes=2 * 8 * states.numel(), n_ops=perm * states.shape[0])
     rows = words(gen, (1 << 18, 986))
     compare("p2_sponge_rows", lambda: merkle.hash_rows(rows),
-            lambda: p2.sponge_rows_plain(rows), 2, results)
+            lambda: p2.sponge_rows_plain(rows), 2, results,
+            n_bytes=8 * (rows.numel() + 8 * rows.shape[0]),
+            n_ops=perm * rows.shape[0] * (986 // 8 + 1))
     del rows
     leaves = words(gen, (1 << 18, 8))
     compare("p2_compress_level",
             lambda: p2.poseidon2_compress_level(leaves),
-            lambda: p2.compress_level_plain(leaves), 10, results)
+            lambda: p2.compress_level_plain(leaves), 10, results,
+            n_bytes=8 * (leaves.numel() + leaves.numel() // 2),
+            n_ops=perm * leaves.shape[0] // 2)
     del leaves
     # The same entry points at more shapes (equality only): larger and
     # smaller batches, a row width that is a multiple of 8, and batches
@@ -229,14 +431,39 @@ def phase_full(launch_counts) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
 
+    # The NTT family launches its own kernel and nothing else.
+    from zkir_tpu_torch.ops import ntt
+    from zkir_tpu_torch.prover.prover import _coset_shift
+
+    x = torch.arange(3 << 14, device="cuda").reshape(3, 1 << 14)
+    _kernels.reset_launches()
+    ntt.lde(x, None, 14, 2, shift=_coset_shift())
+    ntt.coset_ntt(x, x, 14, shift=_coset_shift())
+    ntt.coset_intt(x, x, 14, shift=_coset_shift())
+    ntt.ntt(x, x, 14)
+    ntt.intt(x, x, 14)
+    family = {k: v for k, v in _kernels.launches.items() if v}
+    if family != {"cm31_ntt": 6}:
+        raise AssertionError(f"the NTT family launched {family}")
+    log(f"NTT family (lde, coset_ntt, coset_intt, ntt, intt): {family}")
+
     torch.cuda.reset_peak_memory_stats()
     os.environ["ZKIR_PROVE_LOG"] = "1"     # stage times on stderr
+    captured = io.StringIO()
     t0 = time.perf_counter()
-    warm = prove_trace(matrix, FriConfig(), device="cuda")
+    with contextlib.redirect_stderr(captured):
+        warm = prove_trace(matrix, FriConfig(), device="cuda")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del os.environ["ZKIR_PROVE_LOG"]
     peak = torch.cuda.max_memory_allocated()
+    sys.stderr.write(captured.getvalue())
+    # "[prove   0.0123s] message": seconds since the prove began.
+    marks = [(float(m.group(1)), m.group(2)) for m in re.finditer(
+        r"\[prove\s+([0-9.]+)s\] (.*)", captured.getvalue())]
+    stages = {msg: t1 - t0 for (t0, _), (t1, msg)
+              in zip([(0.0, "")] + marks, marks)}
+    log(f"warm prove stages (s): {stages}")
     if warm != proof:
         raise AssertionError("cold and warm proofs differ")
 
@@ -248,7 +475,7 @@ def phase_full(launch_counts) -> dict:
     rows = matrix.shape[0]
     stats = {"rows": rows, "prove_first_s": first_s, "prove_warm_s": warm_s,
              "rows_per_s_warm": rows / warm_s, "verify_s": verify_s,
-             "peak_bytes": peak}
+             "peak_bytes": peak, "stages_warm_s": stages}
     log(f"2^16 prove: first {first_s:.3f} s, warm {warm_s:.3f} s "
         f"({rows / warm_s:.1f} rows/s), verify {verify_s:.3f} s (True), "
         f"peak device memory {peak / 2**30:.3f} GiB")
@@ -287,7 +514,9 @@ def main() -> int:
                 "replaces": replaces, "launches": launch_counts[name],
                 **results[name]}
                for name, (src, replaces) in KERNELS.items()]
-    print(json.dumps({"prove_2e16": stats, "card": card}))
+    more = {k: v for k, v in results.items() if k not in KERNELS}
+    print(json.dumps({"prove_2e16": stats, "more_kernel_cases": more,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

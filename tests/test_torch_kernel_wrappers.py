@@ -1,0 +1,182 @@
+"""What the port's kernel wrappers tell their kernels, checked on the CPU.
+
+The CUDA kernels run only on a GPU, but everything around them is Python
+that runs anywhere: the broadcast-collapsed (shape, strides, immediates)
+descriptor of K1's two entry points, and the edges that ``cm31_ntt`` fuses
+(short input, absent ``im``, pre/post tables, scale), whose plain version
+must equal the composition of pad and CM31 products the public functions
+used to spell out.  Everything is exact: the values are field words.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zkir_tpu_torch.ops import field_ops as f
+from zkir_tpu_torch.ops import ntt
+
+P = (1 << 31) - 1
+SHIFT = ntt._find_generator()
+
+
+def words(seed, shape):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, P, shape, dtype=np.int64))
+
+
+def _base():
+    return words(1, (6, 8, 10))
+
+
+# name -> operands (tensors or Python ints); the broadcast result is what
+# the kernel must see through (pointer, strides).
+LAYOUTS = {
+    "equal contiguous": lambda b: (b, b + 1),
+    "row vector, stride 0 outside": lambda b: (b, b[0, 0]),
+    "column, stride 0 inside": lambda b: (b[0], b[0, :, :1]),
+    "powers column [C,1] x [C,N]": lambda b: (b[0, :, :1], b[0]),
+    "transposed view": lambda b: (b[0, :, :8].T, b[1, :, :8]),
+    "strided slice": lambda b: (b[:, :, ::2], b[:, :, 1::2]),
+    "odd storage offset": lambda b: (b[0, 0, 1:], b[0, 1, 1:]),
+    "immediate second": lambda b: (b, 12345),
+    "immediate first": lambda b: (P + 7, b[:, ::2]),
+    "scalar tensor": lambda b: (b, b[1, 2, 3]),
+    "middle axis broadcast": lambda b: (b, b[:, :1, :]),
+    "rank 4 after collapsing": lambda b: (
+        words(2, (4, 6, 8, 10))[:, :5, ::2, ::2], b[0, :4, :5]),
+    "four operands": lambda b: (b[0], b[1], b[0, :, :1], 3),
+}
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_descriptor_addresses_the_broadcast_operands(name):
+    """Gathering each operand through its (pointer, strides) over the
+    collapsed shape gives ``torch.broadcast_tensors`` of the operands."""
+    operands = LAYOUTS[name](_base())
+    shape, strides, imms, vec, out_shape = f.binary_descriptor(operands)
+    tensors = [x for x in operands if isinstance(x, torch.Tensor)]
+    assert tuple(out_shape) == tuple(
+        torch.broadcast_shapes(*(x.shape for x in tensors)))
+    assert len(shape) == f.MAX_RANK and int(np.prod(shape)) == \
+        int(np.prod(out_shape))
+    for x, st, imm in zip(operands, strides, imms):
+        if not isinstance(x, torch.Tensor):
+            assert imm == x % P and tuple(st) == (0, 0, 0, 0)
+            continue
+        assert imm == 0
+        want = x.expand(out_shape).reshape(-1)
+        # A pure-Python walk of the kernel's index arithmetic over the
+        # tensor's storage, from the tensor's own offset.
+        flat = torch.as_strided(x, (x.untyped_storage().nbytes() // 8
+                                    - x.storage_offset(),), (1,))
+        got = [int(flat[i0 * st[0] + i1 * st[1] + i2 * st[2] + i3 * st[3]])
+               for i0 in range(shape[0]) for i1 in range(shape[1])
+               for i2 in range(shape[2]) for i3 in range(shape[3])]
+        assert got == want.tolist()
+        if vec == 2 and st[3] != 0:    # what a 16-byte load needs
+            assert st[3] == 1 and x.data_ptr() % 16 == 0
+            assert all(s % 2 == 0 for s in st[:3])
+    flat_layout = shape[:3] == (1, 1, 1)
+    assert vec in (1, 2) and (vec == 1 or flat_layout or shape[3] % 2 == 0)
+
+
+def test_descriptor_vector_width():
+    a = words(3, (4096,))
+    assert f.binary_descriptor((a, a))[3] == 2
+    assert f.binary_descriptor((a[:-1], a[:-1]))[3] == 2   # odd, rank 1
+    assert f.binary_descriptor((a[1:], a[:-1]))[3] == 1    # 8-byte offset
+    assert f.binary_descriptor((a[::2], a[::2]))[3] == 1   # inner stride 2
+    m = a.reshape(64, 64)
+    assert f.binary_descriptor((m, m[:, :1]))[3] == 2      # stride 0 inside
+    assert f.binary_descriptor((m[:, :63], m[:, :63]))[3] == 1
+
+
+def test_descriptor_refuses_rank_5_and_mixed_operands():
+    t5 = words(4, (4, 4, 4, 4, 4))[::2, ::2, ::2, ::2, ::2]
+    with pytest.raises(ValueError, match="rank 5"):
+        f.binary_descriptor((t5, t5.transpose(0, 1)))
+    with pytest.raises(TypeError):
+        f.binary_descriptor((1, 2))
+    with pytest.raises(TypeError):
+        f.binary_descriptor((t5, t5.to(torch.int32)))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_cm31_binary_with_constant_pairs(op):
+    """On the CPU ``cm31_binary`` is the plain composition, also with a
+    constant pair on either side (what the GPU takes as immediates)."""
+    a = (words(5, (7, 33)), words(6, (7, 33)))
+    c = (P - 1, 12345)
+    full = tuple(torch.full_like(a[0], v) for v in c)
+    plain = {"add": f.cm31_add_plain, "sub": f.cm31_sub_plain,
+             "mul": f.cm31_mul_plain}[op]
+    for got, want in ((f.cm31_binary(a, c, op), plain(a, full)),
+                      (f.cm31_binary(c, a, op), plain(full, a))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    s = ntt.cm31_scale(a, 77)
+    assert torch.equal(s[0], f.mul_plain(a[0], 77))
+    assert torch.equal(s[1], f.mul_plain(a[1], 77))
+
+
+def _composition(re, im, log_n, inverse, pre, post, scale):
+    """The edges spelled out: zero ``im``, shift powers, pad, transform,
+    shift powers, scale - each its own pass over the array."""
+    n = 1 << log_n
+    if im is None:
+        im = torch.zeros_like(re)
+    pad = (0, n - re.shape[-1])
+    re = torch.nn.functional.pad(re, pad)
+    im = torch.nn.functional.pad(im, pad)
+    if pre is not None:
+        re, im = f.cm31_mul_plain(
+            (re, im), ntt._on_device(("shift", (pre, log_n)), re.device))
+    re, im = ntt._ntt_core(re, im, log_n, inverse)
+    if post is not None:
+        re, im = f.cm31_mul_plain(
+            (re, im), ntt._on_device(("shift", (post, log_n)), re.device))
+    return f.mul_plain(re, scale), f.mul_plain(im, scale)
+
+
+@pytest.mark.parametrize("log_n", [3, 6])
+@pytest.mark.parametrize("edges", [
+    dict(), dict(short=True), dict(real=True), dict(pre=SHIFT),
+    dict(post=ntt.cm31_inv_scalar(SHIFT), scale=5, inverse=True),
+    dict(short=True, real=True, pre=SHIFT, scale=3),
+], ids=["none", "short", "real", "pre", "post+scale", "short real pre"])
+def test_ntt_plain_edges_equal_the_composition(log_n, edges):
+    n = 1 << log_n
+    in_len = n // 4 if edges.get("short") else n
+    re = words(10 + log_n, (3, in_len))
+    im = None if edges.get("real") else words(20 + log_n, (3, in_len))
+    args = (log_n, edges.get("inverse", False), edges.get("pre"),
+            edges.get("post"), edges.get("scale", 1))
+    got = ntt.cm31_ntt(re, im, *args)
+    want = _composition(re, im, *args)
+    assert got[0].shape == (3, n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_public_transforms_accept_real_and_short_input():
+    re = words(30, (2, 16))
+    zeros = torch.zeros_like(re)
+    for g, w in zip(ntt.lde(re, None, 4, 2, shift=SHIFT),
+                    ntt.lde(re, zeros, 4, 2, shift=SHIFT)):
+        assert torch.equal(g, w)
+    padded = torch.nn.functional.pad(re, (0, 48))
+    for g, w in zip(ntt.coset_ntt(re, re, 6, shift=SHIFT),
+                    ntt.coset_ntt(padded, padded, 6, shift=SHIFT)):
+        assert torch.equal(g, w)
+
+
+def test_ntt_rows_layout_is_checked_not_copied():
+    x = words(31, (5, 32))
+    assert ntt._rows(x, "re") == 32
+    assert ntt._rows(x[:, :8], "re") == 32          # a slice of each row
+    assert ntt._rows(x[2, 8:24], "re") == 16        # a 1-D slice
+    assert ntt._rows(x.reshape(5, 2, 16), "re") == 16
+    with pytest.raises(ValueError, match="unit stride"):
+        ntt._rows(x.T, "re")
+    with pytest.raises(ValueError, match="unit stride"):
+        ntt._rows(x[:, ::2], "re")

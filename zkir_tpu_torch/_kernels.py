@@ -27,15 +27,22 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "_build"
+# --threads 0: one compilation per source file, all started together.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--threads", "0")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
 _I = ctypes.c_int
 # C entry point -> argument types (the stream is appended to each).
 _SIGNATURES = {
-    "m31_binary": (_P, _P, _P, _N, _I),
+    # a, b, out, host descriptor (shape, strides, immediates), op
+    "m31_binary": (_P, _P, _P, _P, _I),
+    # a_re, a_im, b_re, b_im, out_re, out_im, host descriptor, op
+    "cm31_binary": (_P, _P, _P, _P, _P, _P, _P, _I),
+    # in_re, in_im, in_row_stride, in_len, out_re, out_im, twiddles, pre,
+    # post, batch, log_n, scale
+    "cm31_ntt": (_P, _P, _N, _N, _P, _P, _P, _P, _P, _N, _I, _N),
     "p2_permute": (_P, _P, _N),
     "p2_sponge_rows": (_P, _P, _N, _N, _I),
     "p2_compress_level": (_P, _P, _N),
@@ -127,9 +134,20 @@ def _check(lib, err: int, name: str) -> None:
 
 def launch(name: str, *args) -> None:
     """Launch C entry point ``name`` on the current stream and count it."""
+    lib = _lib or _load()
+    _check(lib, getattr(lib, name)(*args, _current_stream()), name)
+    launches[name] += 1
+
+
+def _current_stream() -> int:
+    """The raw handle of PyTorch's current CUDA stream.  A prove makes
+    thousands of launches, and ``torch.cuda.current_stream()`` costs more
+    host time than a launch does (it builds a ``Stream`` object and checks
+    the device each time), so the handle is read through the raw getter
+    where this PyTorch has it."""
     import torch
 
-    lib = _load()
-    stream = torch.cuda.current_stream().cuda_stream
-    _check(lib, getattr(lib, name)(*args, stream), name)
-    launches[name] += 1
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())

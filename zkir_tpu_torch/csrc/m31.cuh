@@ -40,7 +40,20 @@ __device__ __forceinline__ cm31 cm31_sub(cm31 a, cm31 b) {
     return {m31_sub(a.re, b.re), m31_sub(a.im, b.im)};
 }
 
+// x < 2^63 -> x mod p.  x = lo + 2^31 mid + 2^62 hi with 2^31 = 2^62 = 1
+// (mod p): the three parts sum to at most 2p + 1 < 2^32, one more fold
+// leaves at most p + 1, one conditional subtract makes it canonical.
+__device__ __forceinline__ uint32_t m31_reduce63(uint64_t x) {
+    uint32_t s = ((uint32_t)x & M31_P) + ((uint32_t)(x >> 31) & M31_P) +
+                 (uint32_t)(x >> 62);
+    s = (s & M31_P) + (s >> 31);
+    return s >= M31_P ? s - M31_P : s;
+}
+
+// Each coordinate is a sum of two products of < 2^62, reduced once:
+// re = a.re b.re + (p - a.im) b.im, im = a.re b.im + a.im b.re.
 __device__ __forceinline__ cm31 cm31_mul(cm31 a, cm31 b) {
-    return {m31_sub(m31_mul(a.re, b.re), m31_mul(a.im, b.im)),
-            m31_add(m31_mul(a.re, b.im), m31_mul(a.im, b.re))};
+    uint64_t re = (uint64_t)a.re * b.re + (uint64_t)(M31_P - a.im) * b.im;
+    uint64_t im = (uint64_t)a.re * b.im + (uint64_t)a.im * b.re;
+    return {m31_reduce63(re), m31_reduce63(im)};
 }

@@ -11,8 +11,18 @@ group generator) are copies of the reference's.  The transform itself
 is an iterative bit-reversal + Cooley-Tukey network: the reference
 switches to a four-step split at 2^10 (``_FOUR_STEP_MIN``) to keep the
 TPU's lane axis wide, which a GPU does not need; both give the same
-evaluations in the same order.  The butterflies' products and sums go
-through the field layer, so on a GPU they are K1 launches.
+evaluations in the same order.
+
+``cm31_ntt`` is the one transform under every public function, with
+their edges as options: an input shorter than n reads as zero beyond its
+length (the LDE's padding), ``im`` may be ``None`` (real input), ``pre``
+and ``post`` multiply input/output i by a CM31 scalar's i-th power (the
+coset shift), ``scale`` multiplies every output (1/n).  Tensors on a GPU
+take the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``): each public
+function is one call of it (``lde`` two), and no padded, zero or shifted
+copy of the array is made.  Tensors on the CPU take ``ntt_plain``, the
+torch network with the same signature.  ``cm31_mul``/``cm31_add``/
+``cm31_sub`` are one launch each of K1's CM31 entry point on a GPU.
 """
 
 from __future__ import annotations
@@ -24,7 +34,8 @@ import numpy as np
 import torch
 
 from ..spec.field import M31_PRIME, m31_inv as s_inv
-from .field_ops import m31_add, m31_mul, m31_sub
+from .field_ops import (cm31_add_plain, cm31_binary, cm31_mul_plain,
+                        cm31_sub_plain, mul_plain)
 
 P = M31_PRIME
 
@@ -139,7 +150,9 @@ def domain_points(log_n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def _on_device(key, device):
-    """Host tables as int64 tensors, made once per (table, device)."""
+    """Host tables as tensors, made once per (table, device): int64 pairs
+    for the torch code, or one int32 [len, 2] tensor of (re, im) uint32
+    bit patterns for the CUDA kernel."""
     kind, args = key
     if kind == "stage":                  # twiddles of one butterfly stage
         log_n, inverse, m = args
@@ -148,10 +161,22 @@ def _on_device(key, device):
         pair = (twr[::stride][:m], twi[::stride][:m])
     elif kind == "bitrev":
         return torch.from_numpy(_bitrev(args)).to(device)
+    elif kind == "twiddles_u32":         # w^0 .. w^(n/2 - 1)
+        log_n, inverse = args
+        twr, twi = _twiddle_table(log_n, inverse)
+        half = (1 << log_n) // 2
+        return _pairs_u32(twr[:half], twi[:half], device)
+    elif kind == "shift_u32":
+        return _pairs_u32(*_shift_powers(*args), device)
     else:                                # "shift": powers of a coset shift
         pair = _shift_powers(*args)
     return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
                  for a in pair)
+
+
+def _pairs_u32(re, im, device):
+    pairs = np.ascontiguousarray(np.stack([re, im], axis=1), dtype=np.uint32)
+    return torch.from_numpy(pairs.view(np.int32)).to(device)
 
 
 # ============================================================================
@@ -160,20 +185,23 @@ def _on_device(key, device):
 
 
 def cm31_mul(a, b):
-    ar, ai = a
-    br, bi = b
-    return (
-        m31_sub(m31_mul(ar, br), m31_mul(ai, bi)),
-        m31_add(m31_mul(ar, bi), m31_mul(ai, br)),
-    )
+    return cm31_binary(a, b, "mul")
 
 
 def cm31_add(a, b):
-    return (m31_add(a[0], b[0]), m31_add(a[1], b[1]))
+    return cm31_binary(a, b, "add")
 
 
 def cm31_sub(a, b):
-    return (m31_sub(a[0], b[0]), m31_sub(a[1], b[1]))
+    return cm31_binary(a, b, "sub")
+
+
+def cm31_scale(a, c: int):
+    """CM31 value times the M31 constant ``c``: on a GPU one launch with
+    the immediate (c, 0); on the CPU one plain product per coordinate."""
+    if a[0].is_cuda:
+        return cm31_binary(a, (c, 0), "mul")
+    return (mul_plain(a[0], c), mul_plain(a[1], c))
 
 
 # ============================================================================
@@ -182,7 +210,8 @@ def cm31_sub(a, b):
 
 
 def _ntt_core(re, im, log_n: int, inverse: bool):
-    """NTT over the last axis (size 2^log_n), arbitrary leading batch."""
+    """Plain NTT over the last axis (size 2^log_n), arbitrary leading
+    batch: the network the CUDA kernel is held against."""
     n = 1 << log_n
     rev = _on_device(("bitrev", log_n), re.device)
     re = re.index_select(-1, rev)
@@ -194,61 +223,133 @@ def _ntt_core(re, im, log_n: int, inverse: bool):
         tw = _on_device(("stage", (log_n, inverse, m)), re.device)
         re_b = re.reshape(*batch, n // m2, 2, m)
         im_b = im.reshape(*batch, n // m2, 2, m)
-        ur, ui = re_b[..., 0, :], im_b[..., 0, :]
-        vr, vi = cm31_mul((re_b[..., 1, :], im_b[..., 1, :]), tw)
-        re = torch.stack([m31_add(ur, vr), m31_sub(ur, vr)],
-                         dim=-2).reshape(*batch, n)
-        im = torch.stack([m31_add(ui, vi), m31_sub(ui, vi)],
-                         dim=-2).reshape(*batch, n)
+        u = (re_b[..., 0, :], im_b[..., 0, :])
+        v = cm31_mul_plain((re_b[..., 1, :], im_b[..., 1, :]), tw)
+        s, d = cm31_add_plain(u, v), cm31_sub_plain(u, v)
+        re = torch.stack([s[0], d[0]], dim=-2).reshape(*batch, n)
+        im = torch.stack([s[1], d[1]], dim=-2).reshape(*batch, n)
         m = m2
     return re, im
 
 
+def ntt_plain(re, im, log_n: int, inverse: bool, pre=None, post=None,
+              scale: int = 1):
+    """The plain torch version of ``cm31_ntt`` (same signature)."""
+    n, in_len = 1 << log_n, re.shape[-1]
+    if im is None:
+        im = torch.zeros_like(re)
+    if pre is not None:
+        tr, ti = _on_device(("shift", (tuple(pre), log_n)), re.device)
+        re, im = cm31_mul_plain((re, im), (tr[:in_len], ti[:in_len]))
+    if in_len < n:
+        re = torch.nn.functional.pad(re, (0, n - in_len))
+        im = torch.nn.functional.pad(im, (0, n - in_len))
+    re, im = _ntt_core(re, im, log_n, inverse)
+    if post is not None:
+        re, im = cm31_mul_plain(
+            (re, im), _on_device(("shift", (tuple(post), log_n)), re.device))
+    if scale != 1:
+        re, im = mul_plain(re, scale), mul_plain(im, scale)
+    return re, im
+
+
+def _rows(x, what: str):
+    """The row stride, in words, of ``x`` seen as rows of unit inner
+    stride.  The kernel reads [batch, in_len] through one row stride; any
+    other layout raises rather than being copied quietly."""
+    in_len = x.shape[-1]
+    if x.is_contiguous() or x.dim() == 1 and (x.stride(0) == 1 or in_len == 1):
+        return in_len
+    if x.dim() == 2 and (x.stride(1) == 1 or in_len == 1):
+        return x.stride(0)
+    raise ValueError(f"cm31_ntt: {what} of shape {tuple(x.shape)} with "
+                     f"strides {x.stride()} is not rows of unit stride")
+
+
+def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
+              scale: int = 1):
+    """One call of the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``)."""
+    from .. import _kernels
+
+    n, in_len = 1 << log_n, re.shape[-1]
+    if log_n < 1:
+        raise ValueError("cm31_ntt on a GPU needs log_n >= 1")
+    if re.dtype != torch.int64 or (im is not None and (
+            im.dtype != torch.int64 or im.shape != re.shape
+            or im.device != re.device)):
+        raise TypeError("cm31_ntt takes int64 words, re and im of one shape "
+                        "on one device")
+    if not 0 < in_len <= n:
+        raise ValueError(f"cm31_ntt: input length {in_len} not in (0, {n}]")
+    row_stride = _rows(re, "re")
+    if im is not None and _rows(im, "im") != row_stride:
+        raise ValueError("cm31_ntt: re and im differ in row stride")
+    device = re.device
+    out_re = torch.empty(*re.shape[:-1], n, dtype=torch.int64, device=device)
+    out_im = torch.empty_like(out_re)
+    batch = out_re.numel() // n
+    if batch:
+        tw = _on_device(("twiddles_u32", (log_n, inverse)), device)
+        tables = [None if sh is None else
+                  _on_device(("shift_u32", (tuple(sh), log_n)), device)
+                  for sh in (pre, post)]
+        _kernels.launch(
+            "cm31_ntt", re.data_ptr(),
+            None if im is None else im.data_ptr(), row_stride, in_len,
+            out_re.data_ptr(), out_im.data_ptr(), tw.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in tables),
+            batch, log_n, int(scale) % P)
+    return out_re, out_im
+
+
+def cm31_ntt(re, im, log_n: int, inverse: bool, pre=None, post=None,
+             scale: int = 1):
+    """Radix-2 CM31 transform of ``re`` [+ i ``im``] over the last axis,
+    natural order in and out: 2^log_n outputs from ``re.shape[-1]`` <=
+    2^log_n inputs (the rest read as zero).  ``im`` may be ``None``.
+    ``pre``/``post``: a CM31 scalar s (or ``None``); input/output i is
+    multiplied by s^i.  ``scale``: an M31 constant on every output."""
+    if re.is_cuda:
+        return _ntt_cuda(re, im, log_n, inverse, pre, post, scale)
+    return ntt_plain(re, im, log_n, inverse, pre, post, scale)
+
+
+def _shift_or_none(shift):
+    return None if tuple(shift) == (1, 0) else tuple(shift)
+
+
 def ntt(re, im, log_n: int):
     """Forward NTT (coefficients -> evaluations on the 2^log_n subgroup)."""
-    return _ntt_core(re, im, log_n, inverse=False)
+    return cm31_ntt(re, im, log_n, inverse=False)
 
 
 def intt(re, im, log_n: int):
     """Inverse NTT (evaluations -> coefficients)."""
-    out_r, out_i = _ntt_core(re, im, log_n, inverse=True)
-    n_inv = s_inv(1 << log_n)
-    return m31_mul(out_r, n_inv), m31_mul(out_i, n_inv)
-
-
-def _times_shift_powers(re, im, shift, log_n: int):
-    return cm31_mul((re, im), _on_device(("shift", (tuple(shift), log_n)),
-                                         re.device))
+    return cm31_ntt(re, im, log_n, inverse=True, scale=s_inv(1 << log_n))
 
 
 def lde(re, im, log_n: int, log_blowup: int,
         shift: Tuple[int, int] = (1, 0)):
     """Low-degree extension: evaluations on the size-2^log_n subgroup ->
     evaluations on the coset ``shift * <w>`` of the size-2^(log_n +
-    log_blowup) subgroup."""
+    log_blowup) subgroup.  ``im`` may be ``None`` (real evaluations).
+    The coefficients are not padded: the forward transform reads them as
+    zero beyond 2^log_n."""
     coef_r, coef_i = intt(re, im, log_n)
-    pad = (0, (1 << (log_n + log_blowup)) - (1 << log_n))
-    coef_r = torch.nn.functional.pad(coef_r, pad)
-    coef_i = torch.nn.functional.pad(coef_i, pad)
-    if tuple(shift) != (1, 0):
-        coef_r, coef_i = _times_shift_powers(coef_r, coef_i, shift,
-                                             log_n + log_blowup)
-    return ntt(coef_r, coef_i, log_n + log_blowup)
+    return cm31_ntt(coef_r, coef_i, log_n + log_blowup, inverse=False,
+                    pre=_shift_or_none(shift))
 
 
 def coset_ntt(re, im, log_n: int, shift: Tuple[int, int] = (1, 0)):
     """Coefficients -> evaluations on the coset ``shift * <w>``:
     NTT of (coeff_i * shift^i)."""
-    if tuple(shift) != (1, 0):
-        re, im = _times_shift_powers(re, im, shift, log_n)
-    return ntt(re, im, log_n)
+    return cm31_ntt(re, im, log_n, inverse=False, pre=_shift_or_none(shift))
 
 
 def coset_intt(re, im, log_n: int, shift: Tuple[int, int] = (1, 0)):
     """Evaluations on the coset ``shift * <w>`` -> coefficients:
     iNTT then divide coeff_i by shift^i."""
-    coef_r, coef_i = intt(re, im, log_n)
-    if tuple(shift) != (1, 0):
-        coef_r, coef_i = _times_shift_powers(
-            coef_r, coef_i, cm31_inv_scalar(tuple(shift)), log_n)
-    return coef_r, coef_i
+    post = _shift_or_none(shift)
+    return cm31_ntt(re, im, log_n, inverse=True,
+                    post=None if post is None else cm31_inv_scalar(post),
+                    scale=s_inv(1 << log_n))

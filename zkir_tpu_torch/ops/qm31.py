@@ -14,7 +14,7 @@ Representations:
 from __future__ import annotations
 
 from ..spec.field import M31_PRIME
-from .field_ops import m31_add, m31_batch_inv, m31_mul, m31_neg, m31_sub
+from .field_ops import m31_add, m31_batch_inv, m31_mul, m31_neg
 from .ntt import cm31_add, cm31_inv_scalar, cm31_mul, cm31_mul_scalar, \
     cm31_sub
 
@@ -90,16 +90,15 @@ def qm31_mul_cm31_scalar(x, c):
 
 def _times_r(c):
     """R * c for a CM31 value c, R = (2, 1): (2 re - im, re + 2 im)."""
-    return (m31_sub(m31_mul(c[0], 2), c[1]),
-            m31_add(c[0], m31_mul(c[1], 2)))
+    return cm31_mul(c, R)
 
 
 def qm31_add(x, y):
-    return tuple(m31_add(a, b) for a, b in zip(x, y))
+    return (*cm31_add(x[:2], y[:2]), *cm31_add(x[2:], y[2:]))
 
 
 def qm31_sub(x, y):
-    return tuple(m31_sub(a, b) for a, b in zip(x, y))
+    return (*cm31_sub(x[:2], y[:2]), *cm31_sub(x[2:], y[2:]))
 
 
 def qm31_mul(x, y):

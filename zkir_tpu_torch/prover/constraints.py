@@ -99,13 +99,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.field_ops import m31_add, m31_mul, m31_sub
 from ..ops.ntt import (
     cm31_add,
     cm31_inv_scalar,
     cm31_mul,
     cm31_mul_scalar,
     cm31_pow_scalar,
+    cm31_scale,
     cm31_sub,
     coset_intt,
     ntt,
@@ -552,10 +552,8 @@ class VecAlg:
 
     def qscale(self, c, v4):
         """CM31 value ``c`` times QM31 constant ``v4`` (2 CM31 products)."""
-        qa = self.const((v4[0], v4[1]))
-        qb = self.const((v4[2], v4[3]))
-        a = cm31_mul(c, qa)
-        b = cm31_mul(c, qb)
+        a = cm31_mul(c, (int(v4[0]) % P, int(v4[1]) % P))
+        b = cm31_mul(c, (int(v4[2]) % P, int(v4[3]) % P))
         return (a[0], a[1], b[0], b[1])
 
     @staticmethod
@@ -591,14 +589,12 @@ class VecAlg:
     def mulc(self, a, v):
         if not isinstance(v, tuple):
             v = (v, 0)
-        if int(v[1]) % P == 0:
-            # Real constant: 2 base-field muls instead of a full CM31
-            # product (4 muls + 2 adds).
-            c = int(v[0]) % P
-            if c == 1:
-                return a
-            return (m31_mul(a[0], c), m31_mul(a[1], c))
-        return cm31_mul(a, self.const(v))
+        c = (int(v[0]) % P, int(v[1]) % P)
+        if c == (1, 0):
+            return a
+        if c[1] == 0:
+            return cm31_scale(a, c[0])
+        return cm31_mul(a, c)     # the constant pair, no [N] tensor of it
 
 
 class ScalarAlg:
@@ -2105,10 +2101,9 @@ def _dinv(log_n, log_blowup, shift, device):
 
 def _contract_cm31(xr, xi, pr, pi):
     """sum_k (pr_k + i pi_k) * x_k over CM31 for stacks [K, N] and power
-    vectors [K]: four broadcast products, then one sum over K reduced
+    vectors [K]: one broadcast CM31 product, then one sum over K reduced
     mod p (K < 2^32 words of < 2^31 each cannot overflow int64)."""
-    tr = m31_sub(m31_mul(xr, pr[:, None]), m31_mul(xi, pi[:, None]))
-    ti = m31_add(m31_mul(xr, pi[:, None]), m31_mul(xi, pr[:, None]))
+    tr, ti = cm31_mul((xr, xi), (pr[:, None], pi[:, None]))
     return tr.sum(dim=0) % P, ti.sum(dim=0) % P
 
 
@@ -2148,9 +2143,8 @@ def _accumulate_quotient(A: VecAlg, terms, pw, dinv):
             a_pb = _contract_cm31(ar, ai, pa[:, 2], pa[:, 3])
             b_pa = _contract_cm31(br, bi, pa[:, 0], pa[:, 1])
             rb = _times_r(b_pb)
-            a_out = (m31_add(a_pa[0], rb[0]), m31_add(a_pa[1], rb[1]))
-            b_out = (m31_add(a_pb[0], b_pa[0]),
-                     m31_add(a_pb[1], b_pa[1]))
+            a_out = cm31_add(a_pa, rb)
+            b_out = cm31_add(a_pb, b_pa)
             tag_acc = A.qadd(tag_acc,
                              (a_out[0], a_out[1], b_out[0], b_out[1]))
         acc = A.qadd(acc, A.qmul_c(tag_acc, dinv[tag]))

@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from ..ops import merkle
-from ..ops.field_ops import m31_add, m31_mul, m31_sub
 from ..ops.ntt import (
     _find_generator,
+    cm31_mul,
     cm31_mul_scalar,
     cm31_pow_scalar,
     coset_intt,
@@ -102,6 +102,8 @@ def _pad_rows(matrix: np.ndarray, min_log: int = 2):
                 "trace must end in a halt: final ECALL row has r10 = "
                 f"{r10:#x} (not EXIT)")
     log_n = max((n_rows - 1).bit_length(), min_log)
+    if (1 << log_n) == n_rows and matrix.dtype == np.uint32:
+        return matrix, log_n        # nothing to pad: no copy either
     padded = np.zeros(((1 << log_n), matrix.shape[1]), dtype=np.uint32)
     padded[:n_rows] = matrix
     if (1 << log_n) > n_rows and n_rows > 0:
@@ -131,11 +133,10 @@ def _pad_rows(matrix: np.ndarray, min_log: int = 2):
 
 def _combine_kernel(ar, ai, pw_r, pw_i):
     """sum_c pw_c * col_c over CM31 for columns [C, N] and power vectors
-    [C]: four broadcast products, then one sum over C reduced mod p (the
+    [C]: one broadcast CM31 product, then one sum over C reduced mod p (the
     order of a field sum does not matter; C words of < 2^31 each cannot
     overflow int64)."""
-    tr = m31_sub(m31_mul(ar, pw_r[:, None]), m31_mul(ai, pw_i[:, None]))
-    ti = m31_add(m31_mul(ar, pw_i[:, None]), m31_mul(ai, pw_r[:, None]))
+    tr, ti = cm31_mul((ar, ai), (pw_r[:, None], pw_i[:, None]))
     return tr.sum(dim=0) % P, ti.sum(dim=0) % P
 
 
@@ -253,9 +254,14 @@ def prove_trace(matrix: np.ndarray,
 
     # Coset LDE of all columns: [cols, n] -> [cols, N], then phase 1:
     # commit the trace columns.
-    cols_r = torch.from_numpy(padded.T.astype(np.int64)).to(device)
-    ext_r, ext_i = lde(cols_r, torch.zeros_like(cols_r), log_n,
-                       fri_config.log_blowup, shift=shift)
+    # The matrix crosses to the device as it is (4-byte words, row-major);
+    # the transpose to columns and the widening to int64 happen there.
+    rows_dev = torch.from_numpy(
+        np.ascontiguousarray(padded).view(np.int32)).to(device)
+    cols_r = (rows_dev.T.to(torch.int64) & 0xFFFFFFFF).contiguous()
+    del rows_dev
+    ext_r, ext_i = lde(cols_r, None, log_n, fri_config.log_blowup,
+                       shift=shift)
     del cols_r
     log(f"lde done ({n_cols} cols)")
     trace_rows = _interleave_rows(ext_r, ext_i)
@@ -308,9 +314,9 @@ def prove_trace(matrix: np.ndarray,
     q_cm_cols = []
     for j in range(2):
         for coord in range(2):
-            chunk = [torch.nn.functional.pad(
-                q_coef[coord][part][j * n_rows:(j + 1) * n_rows],
-                (0, big - n_rows)) for part in range(2)]
+            # n_rows coefficients: the transform reads the rest as zero.
+            chunk = [q_coef[coord][part][j * n_rows:(j + 1) * n_rows]
+                     for part in range(2)]
             q_cm_cols.append(coset_ntt(chunk[0], chunk[1], log_big,
                                        shift=shift))
     del q_coef
