@@ -13,10 +13,22 @@ Every file here is made with the JAX package (``zkir_tpu``) on the CPU:
 - ``golden_b.proof.json`` / ``golden_b.matrix.npz``: ``prove_trace`` of
   ``exact_trace_program(8)`` with ``GOLDEN_B_CONFIG`` (LDE domain 2^10,
   the NTT's four-step path), its config stored the way the CLI stores it.
+- ``trace_exact_2e16.program.zkir``: ``exact_trace_program(16).to_bytes()``,
+  so that the full-size prove can bind its program.
+- ``golden_c``: ``prove_trace(exact_trace_matrix(10), SMALL_CONFIG,
+  range_lookup=True)`` (the full constraint set, no program).
+- ``golden_d``: the exact output of ``python -m zkir_tpu --platform cpu
+  prove examples/fibonacci.zkasm --input 10 --bind`` (production
+  ``FriConfig()``, I/O tape, program-bound), its matrix as ``cli.py``
+  builds it, and the program's bytes (``golden_d.program.zkir``).
+- ``golden_e``: a program that stores ``b"abc"``, hashes it with the
+  SHA-256 syscall and loads the first digest word (memory table, crypto
+  tape), proved with ``SMALL_CONFIG, range_lookup=True, program=...``.
 
-Run from the repository root (takes a few minutes)::
+Run from the repository root (takes a few minutes); name the fixtures to
+make, or none for all of them::
 
-    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py
+    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py [trace a b c d e]
 """
 
 from __future__ import annotations
@@ -37,6 +49,9 @@ sys.path.insert(0, str(ROOT))
 
 GOLDEN_B_CONFIG = dict(log_blowup=2, log_final=3, num_queries=8,
                        grinding_bits=2, min_security=0)
+# The reference tests' own small config for range_lookup proofs.
+SMALL_CONFIG = dict(log_blowup=2, log_final=3, num_queries=4,
+                    grinding_bits=2, min_security=0)
 
 
 def _trace_2e16() -> None:
@@ -49,9 +64,14 @@ def _trace_2e16() -> None:
     trace = interp.run([[]], max_cycles=2 * n)["trace"]
     np.savez_compressed(HERE / "trace_exact_2e16.npz",
                         **{k: np.asarray(v) for k, v in trace.items()})
+    (HERE / "trace_exact_2e16.program.zkir").write_bytes(
+        exact_trace_program(16).to_bytes())
 
 
-def _golden_a() -> None:
+def _cli_golden(name: str, *flags: str):
+    """``python -m zkir_tpu prove examples/fibonacci.zkasm --input 10`` with
+    ``flags``: its proof JSON and the matrix exactly as cmd_prove builds it
+    (cli.py).  Returns the program."""
     from zkir_tpu.cli import _load_program
     from zkir_tpu.interp import InterpConfig, TpuInterpreter
     from zkir_tpu.prover import trace_to_matrix
@@ -61,17 +81,21 @@ def _golden_a() -> None:
         out = pathlib.Path(tmp) / "proof.json"
         subprocess.run(
             [sys.executable, "-m", "zkir_tpu", "--platform", "cpu", "prove",
-             str(src), "--input", "10", "-o", str(out)],
+             str(src), "--input", "10", *flags, "-o", str(out)],
             check=True, cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=str(ROOT)))
-        (HERE / "golden_a.proof.json").write_text(out.read_text())
-    # The matrix exactly as cmd_prove builds it (cli.py).
+        (HERE / f"golden_{name}.proof.json").write_text(out.read_text())
     program = _load_program(str(src))
     interp = TpuInterpreter(program, InterpConfig(
         lanes=1, chunk=256, collect_trace=True))
     result = interp.run([[10]], max_cycles=100_000)
     matrix = trace_to_matrix(result["trace"], program=program)
-    np.savez_compressed(HERE / "golden_a.matrix.npz", matrix=matrix)
+    np.savez_compressed(HERE / f"golden_{name}.matrix.npz", matrix=matrix)
+    return program
+
+
+def _golden_a() -> None:
+    _cli_golden("a")
 
 
 def _golden_b() -> None:
@@ -80,19 +104,68 @@ def _golden_b() -> None:
     from zkir_tpu.prover.fri import FriConfig
 
     matrix = exact_trace_matrix(8)
-    proof = prove_trace(matrix, FriConfig(**GOLDEN_B_CONFIG))
+    _save_proof("b", prove_trace(matrix, FriConfig(**GOLDEN_B_CONFIG)),
+                matrix)
+
+
+def _save_proof(name: str, proof, matrix) -> None:
     proof["fri"]["config"] = dataclasses.asdict(proof["fri"]["config"])
-    (HERE / "golden_b.proof.json").write_text(json.dumps(proof))
-    np.savez_compressed(HERE / "golden_b.matrix.npz", matrix=matrix)
+    (HERE / f"golden_{name}.proof.json").write_text(json.dumps(proof))
+    np.savez_compressed(HERE / f"golden_{name}.matrix.npz", matrix=matrix)
+
+
+def _golden_c() -> None:
+    from zkir_tpu.prover import prove_trace
+    from zkir_tpu.prover.benchtrace import exact_trace_matrix
+    from zkir_tpu.prover.fri import FriConfig
+
+    matrix = exact_trace_matrix(10)
+    proof = prove_trace(matrix, FriConfig(**SMALL_CONFIG), range_lookup=True)
+    _save_proof("c", proof, matrix)
+
+
+def _golden_d() -> None:
+    program = _cli_golden("d", "--bind")
+    (HERE / "golden_d.program.zkir").write_bytes(program.to_bytes())
+
+
+def _golden_e() -> None:
+    from zkir_tpu.interp import InterpConfig, TpuInterpreter
+    from zkir_tpu.prover import prove_trace, trace_to_matrix
+    from zkir_tpu.prover.fri import FriConfig
+    from zkir_tpu.spec import Instruction, Op, Program
+
+    # Store b"abc" at PTR byte by byte, SHA-256 it (syscall 3) into OUT,
+    # load the first digest word (as tests/test_crypto_air.py builds it).
+    ptr, out, data = 0x4000, 0x4100, b"abc"
+    ins = [Instruction(Op.ADDI, rd=11, rs1=0, imm=ptr)]
+    for i, b in enumerate(data):
+        ins.append(Instruction(Op.ADDI, rd=6, rs1=0, imm=b))
+        ins.append(Instruction(Op.SB, rs1=11, rs2=6, imm=i))
+    ins += [Instruction(Op.ADDI, rd=10, rs1=0, imm=3),
+            Instruction(Op.ADDI, rd=12, rs1=0, imm=len(data)),
+            Instruction(Op.ADDI, rd=13, rs1=0, imm=out),
+            Instruction(Op.ECALL),
+            Instruction(Op.LW, rd=5, rs1=13, imm=0),
+            Instruction(Op.EBREAK)]
+    program = Program.from_instructions(ins)
+    interp = TpuInterpreter(program, InterpConfig(
+        lanes=1, chunk=16, collect_trace=True))
+    matrix = trace_to_matrix(interp.run([[]])["trace"], program=program)
+    proof = prove_trace(matrix, FriConfig(**SMALL_CONFIG), range_lookup=True,
+                        program=program)
+    _save_proof("e", proof, matrix)
+    (HERE / "golden_e.program.zkir").write_bytes(program.to_bytes())
 
 
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    which = sys.argv[1:] or ["trace", "a", "b"]
-    for name in which:
-        {"trace": _trace_2e16, "a": _golden_a, "b": _golden_b}[name]()
+    makers = {"trace": _trace_2e16, "a": _golden_a, "b": _golden_b,
+              "c": _golden_c, "d": _golden_d, "e": _golden_e}
+    for name in sys.argv[1:] or list(makers):
+        makers[name]()
         print(f"made fixture {name}", flush=True)
 
 

@@ -75,7 +75,7 @@ def _stored_proof(name):
 
 
 def test_port_verifier_accepts_golden_a():
-    assert verify_trace(_stored_proof("a"))
+    assert verify_trace(_stored_proof("a"), device="cpu")
 
 
 def _trace_entry(proof):
@@ -92,7 +92,7 @@ def test_port_verifier_rejects_changed_opening(where):
     proof = _stored_proof("a")
     words_, k = where(proof)
     words_[k] = (words_[k] + 1) % P
-    assert not verify_trace(proof)
+    assert not verify_trace(proof, device="cpu")
 
 
 def test_trace_to_matrix_matches_reference():
@@ -117,9 +117,15 @@ def test_violating_trace_is_refused():
 
 def test_unported_options_raise():
     matrix, _ = _golden("b")
-    for kwargs in ({"range_lookup": True}, {"mesh": object()},
-                   {"checkpoint_dir": "x"}, {"program": object()}):
+    for kwargs in ({"mesh": object()}, {"checkpoint_dir": "x"},
+                   {"range_lookup": True, "mesh": object()},
+                   {"range_lookup": True, "checkpoint_dir": "x"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prove_trace(matrix, device="cpu", **kwargs)
+    # range_lookup and program are ported; a program needs range_lookup.
+    with pytest.raises(ValueError, match="requires range_lookup"):
+        prove_trace(matrix, device="cpu", program=object())
+    with pytest.raises(TypeError, match="device"):
+        verify_trace(_stored_proof("b"))
     assert dataclasses.asdict(FriConfig()) == dataclasses.asdict(
         RefFriConfig())

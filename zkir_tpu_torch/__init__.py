@@ -6,13 +6,15 @@ and mirrors the reference's layout so that each module's counterpart is
 easy to find:
 
 - ``zkir_tpu_torch.spec``    — host copies: the M31 scalar field, memory
-  layout constants.
+  layout constants, the program binary format.
 - ``zkir_tpu_torch.ops``     — field layer (CUDA kernel K1), Poseidon2
   (CUDA kernel K2), NTT, QM31, Merkle trees, on int64 tensors.
-- ``zkir_tpu_torch.prover``  — trace matrix, constraints, FRI, and
-  ``prove_trace``/``verify_trace`` (``range_lookup=False`` path).
+- ``zkir_tpu_torch.prover``  — trace matrix, constraints, the LogUp
+  partial sums, the preprocessed aux and program tables, FRI, and
+  ``prove_trace``/``verify_trace`` (with and without ``range_lookup``
+  and program binding).
 - ``zkir_tpu_torch.convert`` — carries state over from the JAX package
-  (trace dicts, Poseidon2 constants, proof JSON).
+  (trace dicts, program-bound fixtures, Poseidon2 constants, proof JSON).
 
 CUDA sources live in ``csrc/``; ``_kernels`` builds them with ``nvcc`` at
 first use on a GPU.

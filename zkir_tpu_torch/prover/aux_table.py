@@ -1,8 +1,8 @@
 """Preprocessed auxiliary lookup tables (AND chunks + shift powers).
 
 Host copy of ``zkir_tpu/prover/aux_table.py``'s table layout.  Its
-commitment, ``preprocess_aux``, serves ``range_lookup=True`` proofs and
-is not ported yet (ROADMAP).
+commitment, ``preprocess_aux``, lives in ``prover.py`` beside
+``preprocess_program``: both are one LDE and one tree on a device.
 
 Two fixed tables, committed once per ``log_n`` as a deterministic
 Merkle tree whose root the verifier recomputes (the same trust model as

@@ -497,17 +497,26 @@ class VecAlg:
       transcript challenge touches (LogUp channels, partial sums).
 
     The interface is the reference's (``zkir_tpu/prover/constraints.py``
-    ``VecAlg``).  Only the trace columns are wired in so far: the
-    partial-sum, aux-table and program accessors serve
-    ``range_lookup=True`` proofs, which the port does not prove yet.
-    The next row of column c is index + 2^log_blowup (a roll of the
-    coset LDE by one trace row).
+    ``VecAlg``): the trace columns, and for ``range_lookup=True`` proofs
+    the committed partial sums (row blocks of the sums LDE) and the
+    preprocessed aux and program tables.  The next row of column c is
+    index + 2^log_blowup (a roll of the coset LDE by one trace row).
     """
 
-    def __init__(self, ext_r, ext_i, log_blowup):
+    def __init__(self, ext_r, ext_i, log_blowup, chan_sums=None,
+                 mem_sum=None, prog_sum=None, prog_ext=None,
+                 aux_ext=None, aux_sums=None, io_sum=None, cr_sums=None):
         self.ext_r, self.ext_i = ext_r, ext_i
         self.big = ext_r.shape[1]
         self.blowup = 1 << log_blowup
+        self._chan_sums = chan_sums      # QM31 4-tuple: [NUM_LOOKUP, N]
+        self._mem_sum = mem_sum          # (S, F): QM31 4-tuples [N]
+        self._prog_sum = prog_sum        # QM31 4-tuple [N]
+        self._prog_ext = prog_ext        # (pr, pi): [4, N]
+        self._aux_ext = aux_ext          # (ar, ai): [N_AUX_COLS, N]
+        self._aux_sums = aux_sums        # QM31 4-tuple: [NUM_AUX, N]
+        self._io_sum = io_sum            # (S, F): QM31 4-tuples [N]
+        self._cr_sums = cr_sums          # (slots [N_SLOTS, N], S, F)
         # Memoized slices/constants: constraints reuse columns heavily.
         self._col_cache = {}
         self._nxt_cache = {}
@@ -523,6 +532,65 @@ class VecAlg:
             self._nxt_cache[c] = (torch.roll(self.ext_r[c], -self.blowup),
                                   torch.roll(self.ext_i[c], -self.blowup))
         return self._nxt_cache[c]
+
+    def _pair_nxt(self, tup):
+        return tuple(torch.roll(c, -self.blowup) for c in tup)
+
+    def scol(self, k):
+        return tuple(c[k] for c in self._chan_sums)
+
+    def snxt(self, k):
+        return self._pair_nxt(self.scol(k))
+
+    def mcol(self):
+        return self._mem_sum[0]
+
+    def mnxt(self):
+        return self._pair_nxt(self._mem_sum[0])
+
+    def mfcol(self):
+        return self._mem_sum[1]
+
+    def iocol(self):
+        return self._io_sum[0]
+
+    def ionxt(self):
+        return self._pair_nxt(self._io_sum[0])
+
+    def iofcol(self):
+        return self._io_sum[1]
+
+    def crinv(self, s):
+        return tuple(c[s] for c in self._cr_sums[0])
+
+    def crcol(self):
+        return self._cr_sums[1]
+
+    def crnxt(self):
+        return self._pair_nxt(self._cr_sums[1])
+
+    def crfcol(self):
+        return self._cr_sums[2]
+
+    def pscol(self):
+        return self._prog_sum
+
+    def psnxt(self):
+        return self._pair_nxt(self._prog_sum)
+
+    def pcol(self, c):
+        pr, pi = self._prog_ext
+        return (pr[c], pi[c])
+
+    def acol(self, c):
+        ar, ai = self._aux_ext
+        return (ar[c], ai[c])
+
+    def ascol(self, k):
+        return tuple(c[k] for c in self._aux_sums)
+
+    def asnxt(self, k):
+        return self._pair_nxt(self.ascol(k))
 
     # --- QM31 half of the interface (4-tuples of [N] int64 tensors) ---
 
@@ -2062,10 +2130,38 @@ def quotient_terms(A, lookup=None, aux=None, memory=None, program=None,
 # ============================================================================
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} serves range_lookup=True proofs, which the port does not "
-        "prove yet (ROADMAP: range_lookup partial sums and preprocess_aux)")
+def _vec_terms(ext_r, ext_i, log_blowup: int, lookup, aux, program, memory,
+               io, crypto):
+    """The torch ``VecAlg`` over the committed columns and every quotient
+    term evaluated on it, from the prover-side arguments of
+    ``quotient_evals``."""
+    chan_sums = mem_sum = prog_sum = prog_ext = None
+    aux_ext = aux_sums = io_sum = cr_sums = None
+    lk = ak = mk = pk = ik = ck = None
+    if lookup is not None:
+        chan_sums, beta = lookup
+        lk = beta
+    if aux is not None:
+        aux_ext, aux_sums, eta = aux
+        ak = (beta, eta)
+    if memory is not None:
+        mem_sum, delta, d_init = memory
+        mk = (beta, delta, d_init)
+    if io is not None:
+        io_sum, delta_io, d_io = io
+        ik = (beta, delta_io, d_io)
+    if crypto is not None:
+        cr_sums, delta_c, d_crypto = crypto
+        ck = (beta, delta_c, d_crypto)
+    if program is not None:
+        prog_ext, prog_sum, gamma, entry = program
+        pk = (beta, gamma, entry)
+    A = VecAlg(ext_r, ext_i, log_blowup, chan_sums=chan_sums,
+               mem_sum=mem_sum, prog_sum=prog_sum, prog_ext=prog_ext,
+               aux_ext=aux_ext, aux_sums=aux_sums, io_sum=io_sum,
+               cr_sums=cr_sums)
+    return A, quotient_terms(A, lookup=lk, aux=ak, memory=mk, program=pk,
+                             io=ik, crypto=ck)
 
 
 def quotient_evals(ext_r, ext_i, log_n: int, log_blowup: int,
@@ -2075,16 +2171,20 @@ def quotient_evals(ext_r, ext_i, log_n: int, log_blowup: int,
     """Q(x) = sum_j alpha^j C_j(x) / D_j(x) on the coset LDE domain, as a
     QM31 4-tuple of [N] tensors on the device of ``ext_r``.
 
+    ``lookup``: optional (s_ext, beta) enabling the LogUp constraints.
+    ``aux``: optional (aux_ext, s_aux_ext, eta) enabling the aux-table
+    channels (requires ``lookup`` for beta).
+    ``program``: optional (prog_ext, s_prog_ext, gamma, entry).
+    ``memory``: optional (s_mem_ext, delta, d_init).
+    ``io``: optional (s_io_ext, delta, d_io) — the I/O-tape channel.
+    ``crypto``: optional (cr_exts, delta, d_crypto) with cr_exts =
+    (slot inverses [N_SLOTS], tape S, tape F) — the crypto-syscall
+    binding (requires ``memory``).
+
     The reference's eager branch: every term is evaluated on a torch
-    ``VecAlg`` and accumulated per divisor tag.  ``lookup``, ``aux``,
-    ``program``, ``memory``, ``io`` and ``crypto`` (the range_lookup
-    channels) are not ported yet."""
-    for name, arg in (("lookup", lookup), ("aux", aux), ("program", program),
-                      ("memory", memory), ("io", io), ("crypto", crypto)):
-        if arg is not None:
-            raise _not_ported(f"quotient_evals({name}=...)")
-    A = VecAlg(ext_r, ext_i, log_blowup)
-    terms = quotient_terms(A)
+    ``VecAlg`` and accumulated per divisor tag."""
+    A, terms = _vec_terms(ext_r, ext_i, log_blowup, lookup, aux, program,
+                          memory, io, crypto)
     return _accumulate_quotient(A, terms,
                                 _alpha_powers_np(alpha, len(terms)),
                                 _dinv(log_n, log_blowup, shift,
@@ -2250,12 +2350,8 @@ def diagnose_violations(ext_r, ext_i, log_n: int, log_blowup: int,
     coefficients determine it exactly) and re-evaluated on the *plain*
     trace subgroup; nonzero values at the rows the divisor covers mean
     the committed trace violates that constraint there."""
-    for name, arg in (("lookup", lookup), ("aux", aux), ("program", program),
-                      ("memory", memory), ("io", io), ("crypto", crypto)):
-        if arg is not None:
-            raise _not_ported(f"diagnose_violations({name}=...)")
-    A = VecAlg(ext_r, ext_i, log_blowup)
-    terms = quotient_terms(A)
+    _, terms = _vec_terms(ext_r, ext_i, log_blowup, lookup, aux, program,
+                          memory, io, crypto)
 
     n = 1 << log_n
     big = 1 << (log_n + log_blowup)

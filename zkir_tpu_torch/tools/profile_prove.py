@@ -3,13 +3,15 @@
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc::
 
-    python3 zkir_tpu_torch/tools/profile_prove.py
+    python3 zkir_tpu_torch/tools/profile_prove.py [--bound]
 
 Proves the 2^16 x 493 benchmark trace (the fixture of ``chip_smoke.py``)
 once to warm up, three times for wall time, once with
-``ZKIR_PROVE_LOG=1`` for the stage times, and once under ``cProfile``:
-the functions by own time and by cumulative time.  The device is idle
-for most of a prove, so the host profile is where the time is.
+``ZKIR_PROVE_LOG=1`` for the stage times and launches, and once under
+``cProfile``: the functions by own time and by cumulative time.  The
+device is idle for most of a prove, so the host profile is where the
+time is.  With ``--bound`` the prove is the full constraint set with the
+program bound (``range_lookup=True, program=...``).
 """
 
 from __future__ import annotations
@@ -38,11 +40,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
+    fixtures = ROOT / "tests" / "fixtures" / "torch_port"
     matrix = trace_to_matrix(trace_from_reference(
-        ROOT / "tests" / "fixtures" / "torch_port" / "trace_exact_2e16.npz"))
+        fixtures / "trace_exact_2e16.npz"))
+    kwargs = {}
+    if "--bound" in sys.argv[1:]:
+        from zkir_tpu_torch.spec import Program
+
+        kwargs = {"range_lookup": True, "program": Program.from_bytes(
+            (fixtures / "trace_exact_2e16.program.zkir").read_bytes())}
 
     def prove():
-        proof = prove_trace(matrix, FriConfig(), device="cuda")
+        proof = prove_trace(matrix, FriConfig(), device="cuda", **kwargs)
         torch.cuda.synchronize()
         return proof
 
