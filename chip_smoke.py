@@ -22,21 +22,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    trip) to the stored reference proofs, and the port's verifier to
    accept them; golden E with a changed digest byte must be refused at
    prove time with the violated terms named;
-5. prove the 2^16-row benchmark trace (493 columns, production
+5. hold the interpreter kernel against its plain version on the card,
+   chunk by chunk, exact on the whole state and on the valid trace rows:
+   the 64 seeded fuzz programs on two lanes each, a memory, I/O and
+   Poseidon2-syscall program on 1,024 lanes with a tape per lane (run
+   once more through ``TpuInterpreter.run``: the path that owns
+   ``p2_permute``), and golden E's program (SHA-256 pause and resume,
+   its matrix equal to the stored one); the proof-of-work search against
+   its plain version; the interpreter's cycles per second on the
+   reference benchmark's loop program at 65,536 and 8,192 lanes;
+6. prove the 2^16-row benchmark trace (493 columns, production
    ``FriConfig()``) without ``range_lookup`` once, and verify it;
-6. the main path at full width: the same trace with
-   ``range_lookup=True`` and its program bound (596 committed trace
-   columns, 119 QM31 partial-sum columns, 838 batched terms), proved
-   cold and warm; the two proofs must be equal, the port's verifier must
-   accept them with the program, every kernel must have been launched by
-   each path, and the NTT family must launch nothing but ``cm31_ntt``.
+7. the main path at full width: ``exact_trace_program(16)`` interpreted
+   on the card (its trace must equal the stored reference trace on valid
+   rows), the matrix proved with ``range_lookup=True`` and its program
+   bound (596 committed trace columns, 119 QM31 partial-sum columns, 838
+   batched terms), cold and warm; the two proofs must be equal, the
+   port's verifier must accept them with the program, the interpreter's
+   and every prover kernel must have been launched, and the NTT family
+   must launch nothing but ``cm31_ntt``;
+8. the CLI as a user runs it, in subprocesses of ``python3 -m
+   zkir_tpu_torch`` in a temporary directory: ``asm``, ``run``, ``prove``
+   with and without ``--bind`` (proofs JSON-equal to goldens D and A),
+   ``verify`` (accepting, and refusing another program), and ``prove
+   --checkpoint-dir`` resumed after its last stage's file was deleted.
 
 The line before the last is a JSON object with one entry per kernel
-entry point (launches in the cold full-width prove of phase 6, those of
-phase 5 beside them, max |kernel - plain|, kernel and plain
-milliseconds, the bound and what sets it); the line before it holds both
-proves' timings, stage times and the further timed cases; the last line
-is ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+entry point (launches on the path that owns it: the interpret-and-prove
+run of phase 7, or for ``p2_permute`` the syscall run of phase 5; max
+|kernel - plain|, kernel and plain milliseconds, the bound and what sets
+it); the line before it holds the timings, stage times and the further
+timed cases; the last line is ``{"ok": true, "device": {...}}``.  The
+script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -81,7 +99,23 @@ KERNELS = {
                        "zkir_tpu/ops/poseidon2.py:261"),
     "p2_compress_level": ("zkir_tpu_torch/csrc/poseidon2.cu",
                           "zkir_tpu/ops/poseidon2.py:261"),
+    "p2_grind": ("zkir_tpu_torch/csrc/poseidon2.cu",
+                 "zkir_tpu/ops/poseidon2.py:261"),
+    # The jitted lax.scan of the reference interpreter (XLA, not Pallas).
+    "interp_chunk": ("zkir_tpu_torch/csrc/interp.cu",
+                     "zkir_tpu/interp/columnar.py:1083"),
 }
+# The kernels the interpret-and-prove path must launch; p2_permute belongs
+# to the interpreter's Poseidon2 syscalls.
+MAIN_PATH_KERNELS = [k for k in KERNELS if k != "p2_permute"]
+PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_chunk"]
+# Instructions every cycle executes in the built interpreter kernel,
+# whatever its opcode (a floor: zkir_tpu_torch/tools/sass_count.py --floor
+# on interp_kernel's SASS, 1,784 static instructions, 1,390 in the cycle
+# loop), and the bytes of one trace row.
+INTERP_INSTR_PER_CYCLE = 140
+SM_CLOCK_HZ = 1.98e9
+TRACE_ROW_BYTES = 244
 
 
 def log(msg: str) -> None:
@@ -138,11 +172,22 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def compare(name, kernel_fn, plain_fn, iters, results, *, n_bytes, n_ops,
-            plain_iters=None, key=None):
+def interp_bound(n_bytes: float, cycles: int, lanes: int) -> dict:
+    """The interpreter kernel's bound: bytes as in ``bound``; its
+    instructions (the floor per cycle) at the card's issue rate, or, where
+    the lanes are too few to reach that, at one instruction a clock for
+    each lane's thread (a lane is one sequential machine)."""
+    n_ops = INTERP_INSTR_PER_CYCLE * cycles * lanes
+    rate = min(INT_OPS_PER_S, lanes * SM_CLOCK_HZ)
+    return bound(n_bytes, n_ops * INT_OPS_PER_S / rate)
+
+
+def compare(name, kernel_fn, plain_fn, iters, results, *, n_bytes=0, n_ops=0,
+            plain_iters=None, key=None, bounds=None):
     """Run the kernel's wrapper and its plain version on the same card
-    tensors; require equal words; time both.  No one PyTorch call
-    computes any of these functions, so ``library_ms`` is null."""
+    tensors; require equal words; time both.  The bound is ``bounds`` or
+    ``bound(n_bytes, n_ops)``.  No one PyTorch call computes any of these
+    functions, so ``library_ms`` is null."""
     import torch
 
     got = kernel_fn()
@@ -154,7 +199,8 @@ def compare(name, kernel_fn, plain_fn, iters, results, *, n_bytes, n_ops,
     ms = cuda_ms(kernel_fn, iters)
     plain_ms = cuda_ms(plain_fn, plain_iters or iters)
     results[key or name] = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, **bound(n_bytes, n_ops),
+                            "plain_ms": plain_ms,
+                            **(bounds or bound(n_bytes, n_ops)),
                             "library_ms": None}
     r = results[key or name]
     log(f"{key or name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -404,6 +450,334 @@ def phase_kernels(results) -> None:
     log("poseidon2 KATs: exact")
 
 
+def interp_flat(state, trace):
+    """A machine state and the valid rows of a chunk's trace as a tuple of
+    int64 tensors, for ``max_abs_err``."""
+    import torch
+
+    out = [t.to(torch.int64) for t in state]
+    if trace is not None:
+        valid = trace["valid"]
+        out.append(valid.to(torch.int64))
+        out += [t[valid].to(torch.int64) for k, t in trace.items()
+                if k != "valid"]
+    return tuple(out)
+
+
+def interp_both(name, interp, inputs, max_chunks=64):
+    """Run ``interp`` from its initial state through the kernel and through
+    the plain version side by side on the card, holding state and valid
+    trace rows equal after every chunk (and servicing paused syscalls in
+    both).  Returns the cycles run."""
+    import torch
+
+    from zkir_tpu_torch.interp import (HALT_NONE, PAUSE_CRYPTO,
+                                       interp_chunk, interp_chunk_plain)
+
+    sk = sp = interp.init_state(inputs)
+    for chunk in range(max_chunks):
+        sk, tk = interp_chunk(interp.code, interp.n_words, sk, interp.config)
+        sp, tp = interp_chunk_plain(interp.code, interp.n_words, sp,
+                                    interp.config)
+        torch.cuda.synchronize()
+        max_abs_err(f"{name}, chunk {chunk}", interp_flat(sk, tk),
+                    interp_flat(sp, tp))
+        if bool((sk.halted == PAUSE_CRYPTO).any()):
+            sk, sp = interp._service_crypto(sk), interp._service_crypto(sp)
+            max_abs_err(f"{name}, syscalls of chunk {chunk}",
+                        interp_flat(sk, None), interp_flat(sp, None))
+        if not bool((sk.halted == HALT_NONE).any()):
+            return int(sk.cycles.sum())
+    raise AssertionError(f"{name}: still running after {max_chunks} chunks")
+
+
+def lanes_program():
+    """A memory, I/O and syscall program for many lanes: eight rounds of
+    READ, stores and loads of every width in both memory windows, MUL,
+    MULH, the divide family, shifts, compares and a WRITE; then a
+    Poseidon2 syscall over a tape-dependent number of the stored bytes,
+    its first digest word written out, and EXIT."""
+    from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+    ins = [
+        I(Op.ADDI, rd=15, rs1=0, imm=0x6000),       # low-window scratch
+        I(Op.ADDI, rd=14, rs1=0, imm=-1),           # = STACK_TOP (40 bits)
+        I(Op.ADDI, rd=14, rs1=14, imm=-71),         # 8-aligned, 72 below
+        I(Op.ADDI, rd=9, rs1=0, imm=8),             # round counter
+    ]
+    loop = [
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ -> r10
+        I(Op.ADDI, rd=1, rs1=10, imm=0),
+        I(Op.MUL, rd=2, rs1=1, rs2=1),
+        I(Op.MULH, rd=3, rs1=2, rs2=1),
+        I(Op.SD, rs1=15, rs2=2, imm=0), I(Op.SW, rs1=15, rs2=3, imm=8),
+        I(Op.SH, rs1=15, rs2=1, imm=12), I(Op.SB, rs1=15, rs2=1, imm=14),
+        I(Op.SD, rs1=14, rs2=3, imm=0), I(Op.SB, rs1=14, rs2=2, imm=71),
+        I(Op.LB, rd=4, rs1=15, imm=1), I(Op.LBU, rd=5, rs1=15, imm=14),
+        I(Op.LH, rd=6, rs1=15, imm=2), I(Op.LHU, rd=7, rs1=15, imm=12),
+        I(Op.LW, rd=8, rs1=14, imm=4), I(Op.LD, rd=2, rs1=14, imm=0),
+        I(Op.LBU, rd=11, rs1=14, imm=71),
+        I(Op.ORI, rd=12, rs1=5, imm=1),
+        I(Op.DIVU, rd=3, rs1=2, rs2=12), I(Op.REM, rd=4, rs1=4, rs2=12),
+        I(Op.DIV, rd=6, rs1=6, rs2=12), I(Op.REMU, rd=7, rs1=8, rs2=12),
+        I(Op.SRA, rd=5, rs1=4, rs2=9), I(Op.SLL, rd=8, rs1=8, rs2=9),
+        I(Op.SRLI, rd=13, rs1=2, imm=3),
+        I(Op.SLT, rd=12, rs1=4, rs2=6), I(Op.SGEU, rd=13, rs1=13, rs2=7),
+        I(Op.CMOVNZ, rd=3, rs1=8, rs2=12), I(Op.CMOVZ, rd=3, rs1=5, rs2=13),
+        I(Op.XOR, rd=11, rs1=11, rs2=3), I(Op.ADD, rd=11, rs1=11, rs2=6),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL),        # WRITE r11
+        I(Op.ADDI, rd=15, rs1=15, imm=16),
+        I(Op.ADDI, rd=9, rs1=9, imm=-1),
+    ]
+    loop.append(I(Op.BNE, rs1=9, rs2=0, imm=-4 * len(loop)))
+    tail = [
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ: length
+        I(Op.ANDI, rd=12, rs1=10, imm=0x7F),
+        I(Op.ADDI, rd=11, rs1=0, imm=0x6000),
+        I(Op.ADDI, rd=13, rs1=0, imm=0x6100),
+        I(Op.ADDI, rd=10, rs1=0, imm=4), I(Op.ECALL),        # POSEIDON2
+        I(Op.LD, rd=11, rs1=13, imm=0),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL),        # WRITE r11
+        I(Op.ANDI, rd=11, rs1=11, imm=0xFF),
+        I(Op.ADDI, rd=10, rs1=0, imm=0), I(Op.ECALL),        # EXIT
+    ]
+    return Program.from_instructions(ins + loop + tail)
+
+
+def bench_loop_program():
+    """The reference benchmark's interpreter loop: six instructions, no
+    memory."""
+    from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+    return Program.from_instructions([
+        I(Op.ADDI, rd=1, rs1=0, imm=7), I(Op.ADD, rd=2, rs1=2, rs2=1),
+        I(Op.MUL, rd=3, rs1=2, rs2=1), I(Op.XOR, rd=4, rs1=3, rs2=2),
+        I(Op.SLT, rd=5, rs1=4, rs2=2), I(Op.JAL, rd=0, imm=-20)])
+
+
+def phase_interp(results) -> dict:
+    """Kernel K3 against its plain version, the syscall path, the
+    proof-of-work search, and the interpreter's throughput."""
+    import numpy as np
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.interp import (InterpConfig, TpuInterpreter,
+                                       interp_chunk, interp_chunk_plain)
+    from zkir_tpu_torch.ops import poseidon2 as p2
+    from zkir_tpu_torch.prover import trace_to_matrix
+    from zkir_tpu_torch.prover.benchtrace import exact_trace_program
+    from zkir_tpu_torch.prover.challenger import Challenger
+    from zkir_tpu_torch.spec import Program
+    from zkir_tpu_torch.tools.fuzz_programs import generate_program
+
+    stats = {}
+    small = dict(low_bytes=1 << 15, stack_bytes=1 << 12, collect_trace=True)
+
+    # (a) the fuzz corpus's 64 programs, two lanes with different tapes.
+    t0 = time.perf_counter()
+    cycles = 0
+    for seed in range(64):
+        program, inputs = generate_program(seed)
+        interp = TpuInterpreter(program, InterpConfig(
+            lanes=2, chunk=64, **small), device="cuda")
+        cycles += interp_both(f"interp_chunk fuzz seed {seed}", interp,
+                              [inputs, [x ^ 0x5A5A for x in inputs[::-1]]])
+    log(f"interp_chunk: exact on 64 fuzz programs x 2 lanes ({cycles} "
+        f"cycles, {time.perf_counter() - t0:.1f} s)")
+
+    # (b) memory, I/O and a Poseidon2 syscall on 1,024 lanes.
+    lanes = 1024
+    rng = np.random.default_rng(SEED)
+    tapes = [[int(v) for v in rng.integers(0, 1 << 40, size=9)]
+             for _ in range(lanes)]
+    interp = TpuInterpreter(lanes_program(), InterpConfig(
+        lanes=lanes, chunk=128, **small), device="cuda")
+    cycles = interp_both("interp_chunk 1,024 lanes", interp, tapes)
+    log(f"interp_chunk: exact on the memory/I/O/syscall program, {lanes} "
+        f"lanes ({cycles} cycles)")
+    # The same program through the entry point a user calls: the path
+    # that owns p2_permute (the Poseidon2 syscalls of all lanes, batched).
+    _kernels.reset_launches()
+    result = interp.run(tapes)
+    stats["syscall_path_launches"] = dict(_kernels.launches)
+    if not _kernels.launches["p2_permute"] \
+            or not _kernels.launches["interp_chunk"]:
+        raise AssertionError("the syscall path launched "
+                             f"{stats['syscall_path_launches']}")
+    if set(result["halted"].tolist()) != {2} \
+            or any(len(o) != 9 for o in result["outputs"]) \
+            or len({int(o[8]) for o in result["outputs"]}) < lanes // 2:
+        raise AssertionError("the 1,024-lane run did not exit with nine "
+                             "outputs a lane")
+    log(f"syscall path: {stats['syscall_path_launches']}")
+
+    # (c) golden E's program: SHA-256 pause and resume.
+    program = Program.from_bytes(
+        (FIXTURES / "golden_e.program.zkir").read_bytes())
+    cfg = InterpConfig(lanes=1, chunk=16, collect_trace=True)
+    interp_both("interp_chunk golden e",
+                TpuInterpreter(program, cfg, device="cuda"), [[]])
+    matrix = trace_to_matrix(
+        TpuInterpreter(program, cfg, device="cuda").run([[]])["trace"],
+        program=program)
+    with np.load(FIXTURES / "golden_e.matrix.npz") as z:
+        if not np.array_equal(matrix, z["matrix"]):
+            raise AssertionError("golden e: the card-made matrix differs "
+                                 "from the stored one")
+    log("interp_chunk: exact on golden e's program; matrix equal to the "
+        "stored one")
+
+    # The main path's shape, timed: one lane, 1,024 cycles, with a trace.
+    interp = TpuInterpreter(exact_trace_program(16), InterpConfig(
+        lanes=1, chunk=1024, collect_trace=True), device="cuda")
+    state0 = interp.init_state([[]])
+    state_bytes = sum(t.numel() * t.element_size() for t in state0)
+    compare("interp_chunk",
+            lambda: interp_flat(*interp_chunk(
+                interp.code, interp.n_words, state0, interp.config)),
+            lambda: interp_flat(*interp_chunk_plain(
+                interp.code, interp.n_words, state0, interp.config)),
+            20, results, plain_iters=1, bounds=interp_bound(
+                2 * state_bytes + TRACE_ROW_BYTES * 1024, 1024, 1))
+
+    # Throughput on the reference benchmark's loop program, no trace:
+    # lanes x chunk cycles per launch, three chunks by CUDA events.
+    for lanes in (65536, 8192):
+        interp = TpuInterpreter(bench_loop_program(), InterpConfig(
+            lanes=lanes, chunk=512, low_bytes=1 << 13,
+            stack_bytes=1 << 12), device="cuda")
+        state = interp.init_state([[1]] * lanes)
+        state, _ = interp.chunk_fn(state)           # warm
+        holder = [state]
+
+        def three_chunks():
+            for _ in range(3):
+                holder[0], _ = interp.chunk_fn(holder[0])
+
+        ms = cuda_ms(three_chunks, 3)
+        done = int(holder[0].cycles[0])
+        if done != 512 * 13 or bool((holder[0].cycles != done).any()):
+            raise AssertionError(f"loop program ran {done} cycles a lane")
+        rate = 3 * 512 * lanes / (ms / 1e3)
+        results[f"interp_chunk loop program [{lanes} lanes x 512]"] = {
+            "ms": ms / 3, "cycles_per_s": rate,
+            **interp_bound(2 * lanes * 16 * 12, 512, lanes)}
+        stats[f"interp_cycles_per_s_{lanes}_lanes"] = rate
+        log(f"interp_chunk: {lanes} lanes x 512 cycles in {ms / 3:.3f} ms "
+            f"a launch, {rate:.4g} cycles/s")
+
+    # p2_grind against grind_plain: equal nonces, and check_pow accepts.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    for bits in (2, 8, 16):
+        for trial in range(3):
+            state = words(gen, (16,)).tolist()
+            nonce = p2.grind(state, bits, "cuda")
+            want = p2.grind_plain(state, bits, "cuda")
+            if nonce != want:
+                raise AssertionError(f"p2_grind found {nonce}, grind_plain "
+                                     f"{want} ({bits} bits)")
+            ch = Challenger()
+            ch._state = list(state)
+            if not ch.check_pow(nonce, bits):
+                raise AssertionError(f"check_pow refuses nonce {nonce}")
+    log("p2_grind: nonces equal to grind_plain's for 2, 8 and 16 bits; "
+        "check_pow accepts")
+    state = words(gen, (16,)).tolist()
+    trials = p2.grind_plain(state, 16, "cuda") + 1
+    compare("p2_grind",
+            lambda: torch.tensor([p2.grind(state, 16, "cuda")]),
+            lambda: torch.tensor([p2.grind_plain(state, 16, "cuda")]),
+            20, results, plain_iters=3, n_bytes=16 * 8 + 8,
+            n_ops=P2_INSTR_PER_PERMUTATION * trials)
+    results["p2_grind"]["trials"] = trials
+    return stats
+
+
+def run_cli(workdir, *args, expect=0):
+    """``python3 -m zkir_tpu_torch *args`` in ``workdir``: (stdout,
+    stderr, seconds); fails on another exit code than ``expect``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), ZKIR_PROVE_LOG="1")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "zkir_tpu_torch", *args],
+                         cwd=workdir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if res.returncode != expect:
+        raise AssertionError(f"zkir_tpu_torch {' '.join(args)}: exit "
+                             f"{res.returncode}, expected {expect}\n"
+                             f"{res.stdout}\n{res.stderr}")
+    return res.stdout, res.stderr, seconds
+
+
+def phase_cli() -> dict:
+    """The CLI as a user runs it, each command a fresh process."""
+    fib = str(ROOT / "examples" / "fibonacci.zkasm")
+    other = str(FIXTURES / "golden_e.program.zkir")
+    stats = {}
+
+    def same(path, golden):
+        want = json.loads((FIXTURES / f"{golden}.proof.json").read_text())
+        if json.loads(pathlib.Path(path).read_text()) != want:
+            raise AssertionError(f"{path} differs from {golden}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        out, _, _ = run_cli(tmp, "asm", fib, "-o", "fib.zkir")
+        if "assembled" not in out or not (tmp / "fib.zkir").exists():
+            raise AssertionError(f"asm: {out}")
+        out, _, _ = run_cli(tmp, "disasm", "fib.zkir")
+        if "ecall" not in out:
+            raise AssertionError(f"disasm: {out}")
+        out, _, stats["cli_run_s"] = run_cli(tmp, "run", "fib.zkir",
+                                             "--input", "10")
+        if out.strip() != "halt=2 cycles=62 exit=0 outputs=[55]":
+            raise AssertionError(f"run: {out}")
+        out, _, stats["cli_prove_bind_s"] = run_cli(
+            tmp, "prove", fib, "--input", "10", "--bind", "-o", "d.json")
+        if out.strip() != "proved 62 trace rows (62 cycles) -> d.json":
+            raise AssertionError(f"prove --bind: {out}")
+        same(tmp / "d.json", "golden_d")
+        out, _, stats["cli_verify_s"] = run_cli(tmp, "verify", "d.json",
+                                                "--binary", "fib.zkir")
+        if out.strip() != "VALID":
+            raise AssertionError(f"verify: {out}")
+        out, _, _ = run_cli(tmp, "verify", "d.json", "--binary", other,
+                            expect=1)
+        if out.strip() != "INVALID":
+            raise AssertionError(f"verify with another program: {out}")
+        out, _, _ = run_cli(tmp, "verify", "d.json", expect=1)
+        if "requires the public program" not in out:
+            raise AssertionError(f"verify without --binary: {out}")
+        _, _, stats["cli_prove_s"] = run_cli(tmp, "prove", "fib.zkir",
+                                             "--input", "10", "-o", "a.json")
+        same(tmp / "a.json", "golden_a")
+        log("CLI: asm, disasm, run, prove (goldens D and A reproduced), "
+            "verify VALID / INVALID with another program")
+
+        # A checkpointed prove, resumed after its last stage was lost.
+        ck = ["prove", fib, "--input", "10", "--bind", "--checkpoint-dir",
+              "ck", "-o"]
+        _, err, _ = run_cli(tmp, *ck, "ck1.json")
+        if "resumed" in err:
+            raise AssertionError("a first checkpointed prove resumed")
+        stages = sorted(f.name.split(".")[-2] for f in (tmp / "ck").iterdir())
+        if stages != ["commit", "fri", "quotient", "sums"]:
+            raise AssertionError(f"checkpoint stages {stages}")
+        next((tmp / "ck").glob("*.fri.pkl")).unlink()
+        _, err, stats["cli_prove_resumed_s"] = run_cli(tmp, *ck, "ck2.json")
+        resumed = re.findall(r"stage (\w+) resumed", err)
+        if resumed != ["commit", "sums", "quotient"]:
+            raise AssertionError(f"the second prove resumed {resumed}")
+        same(tmp / "ck1.json", "golden_d")
+        same(tmp / "ck2.json", "golden_d")
+        log(f"CLI: prove --checkpoint-dir resumed {resumed} and gave the "
+            "unbroken proof")
+    log(f"CLI seconds, fresh processes: {stats}")
+    return stats
+
+
 def phase_goldens() -> None:
     """Goldens A-E on the card: the port's proof equals the reference's
     stored one, and the port's verifier accepts it."""
@@ -480,10 +854,10 @@ def logged_prove(prove):
     return proof, seconds, stages, peak
 
 
-def counted(prove):
+def counted(prove, kernels):
     """Run ``prove()`` with every launch count set to 0 just before and
-    read just after: (proof, seconds, launches).  Fails if a kernel was
-    not launched."""
+    read just after: (proof, seconds, launches).  Fails if one of
+    ``kernels`` was not launched."""
     import torch
 
     from zkir_tpu_torch import _kernels
@@ -495,9 +869,9 @@ def counted(prove):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_kernels.launches)
-    missing = [k for k in KERNELS if not launches.get(k)]
+    missing = [k for k in kernels if not launches.get(k)]
     if missing:
-        raise AssertionError(f"kernels not launched by the prove: {missing}")
+        raise AssertionError(f"kernels not launched by the path: {missing}")
     return proof, seconds, launches
 
 
@@ -505,20 +879,68 @@ def phase_full() -> dict:
     import torch
 
     from zkir_tpu_torch import _kernels
+    import numpy as np
+
     from zkir_tpu_torch.convert import trace_from_reference
+    from zkir_tpu_torch.interp import InterpConfig, TpuInterpreter
     from zkir_tpu_torch.prover import (FriConfig, prove_trace,
                                        trace_to_matrix, verify_trace)
+    from zkir_tpu_torch.prover.benchtrace import exact_trace_program
     from zkir_tpu_torch.spec import Program
 
-    trace = trace_from_reference(FIXTURES / "trace_exact_2e16.npz")
-    matrix = trace_to_matrix(trace)
-    if matrix.shape != (1 << 16, 493):
-        raise AssertionError(f"trace matrix shape {matrix.shape}")
-    program = Program.from_bytes(
-        (FIXTURES / "trace_exact_2e16.program.zkir").read_bytes())
-    log(f"trace matrix {matrix.shape}, program of {len(program.code)} "
-        "instructions")
-    rows = matrix.shape[0]
+    # The reference interpreter's trace of the same program, made on a
+    # CPU: the card-made trace is held to it, and the range_lookup=False
+    # prove still reads it.
+    ref_trace = trace_from_reference(FIXTURES / "trace_exact_2e16.npz")
+    ref_matrix = trace_to_matrix(ref_trace)
+    if ref_matrix.shape != (1 << 16, 493):
+        raise AssertionError(f"trace matrix shape {ref_matrix.shape}")
+    program = exact_trace_program(16)
+    if program.to_bytes() != (
+            FIXTURES / "trace_exact_2e16.program.zkir").read_bytes():
+        raise AssertionError("exact_trace_program(16) differs from the "
+                             "stored program")
+    rows = ref_matrix.shape[0]
+
+    seconds = {}
+
+    def interpret():
+        """The main path's first stage: program -> trace -> matrix, the
+        seconds of both steps left in ``seconds``."""
+        t0 = time.perf_counter()
+        interp = TpuInterpreter(program, InterpConfig(
+            lanes=1, chunk=1024, collect_trace=True), device="cuda")
+        trace = interp.run([[]], max_cycles=2 * rows)["trace"]
+        t1 = time.perf_counter()
+        matrix = trace_to_matrix(trace)
+        seconds.update(run_s=t1 - t0, matrix_s=time.perf_counter() - t1)
+        return trace, matrix
+
+    _kernels.reset_launches()
+    trace, matrix = interpret()
+    first = dict(seconds)
+    if _kernels.launches["interp_chunk"] != rows // 1024:
+        raise AssertionError(f"the 2^16 trace took {_kernels.launches}")
+    valid = ref_trace["valid"]
+    if set(trace) != set(ref_trace):
+        raise AssertionError(f"trace keys {sorted(trace)}")
+    for key, want in ref_trace.items():
+        got = trace[key]
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not np.array_equal(got[valid], want[valid]):
+            raise AssertionError(f"the card-made trace differs from the "
+                                 f"reference's in {key!r}")
+    if not np.array_equal(trace["valid"], valid) \
+            or not np.array_equal(matrix, ref_matrix):
+        raise AssertionError("the card-made trace matrix differs from the "
+                             "reference's")
+    interpret()
+    warm = dict(seconds)
+    log(f"interpreter: 2^16-cycle trace on the card equal to the "
+        f"reference's ({rows // 1024} launches; TpuInterpreter.run first "
+        f"{first['run_s']:.3f} s, warm {warm['run_s']:.3f} s; "
+        f"trace_to_matrix {warm['matrix_s']:.3f} s); matrix "
+        f"{matrix.shape}, program of {len(program.code)} instructions")
 
     # The NTT family launches its own kernel and nothing else.
     from zkir_tpu_torch.ops import ntt
@@ -536,16 +958,30 @@ def phase_full() -> dict:
         raise AssertionError(f"the NTT family launched {family}")
     log(f"NTT family (lde, coset_ntt, coset_intt, ntt, intt): {family}")
 
-    stats = {}
+    stats = {"interpret_2e16": {"rows": rows, "first": first, "warm": warm}}
     for key, kwargs in (
             ("prove_2e16", {}),
             ("prove_2e16_bound", {"range_lookup": True,
                                   "program": program})):
-        def prove():
-            return prove_trace(matrix, FriConfig(), device="cuda", **kwargs)
-
         bound_program = kwargs.get("program")
-        proof, first_s, launches = counted(prove)
+        if bound_program is None:
+            def prove():
+                return prove_trace(ref_matrix, FriConfig(), device="cuda")
+
+            proof, first_s, launches = counted(prove, PROVER_KERNELS)
+        else:
+            # The main path, as the CLI's prove drives it: interpret on
+            # the card, build the matrix, prove it with the program bound.
+            def prove():
+                return prove_trace(matrix, FriConfig(), device="cuda",
+                                   **kwargs)
+
+            def interpret_and_prove():
+                return prove_trace(interpret()[1], FriConfig(),
+                                   device="cuda", **kwargs)
+
+            proof, first_s, launches = counted(interpret_and_prove,
+                                               MAIN_PATH_KERNELS)
         log(f"{key}: launches in the first prove: {launches}")
         warm, warm_s, stages, peak = logged_prove(prove)
         log(f"{key}: warm prove stages: {stages}")
@@ -602,17 +1038,27 @@ def main() -> int:
     results = {}
     phase_kernels(results)
     phase_goldens()
-    stats = phase_full()
+    interp_stats = phase_interp(results)
+    stats = {**phase_full(), "interp": interp_stats, "cli": phase_cli()}
 
-    # launches: the main path (range_lookup=True, program bound);
-    # launches_plain_path: the range_lookup=False prove.
+    # launches: the path that owns the kernel (interpret and prove with
+    # range_lookup=True and the program bound; for p2_permute the
+    # interpreter's Poseidon2 syscalls); launches_plain_path: the
+    # range_lookup=False prove.
+    main_path = dict(stats["prove_2e16_bound"]["launches"],
+                     p2_permute=interp_stats["syscall_path_launches"]
+                     ["p2_permute"])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
-                "launches": stats["prove_2e16_bound"]["launches"][name],
+                "launches": main_path[name],
                 "launches_plain_path":
                     stats["prove_2e16"]["launches"][name],
-                **results[name]}
+                **{k: results[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name, (src, replaces) in KERNELS.items()]
+    if any(not k["launches"] for k in kernels):
+        raise AssertionError(f"a kernel was launched by no path: {kernels}")
     more = {k: v for k, v in results.items() if k not in KERNELS}
     print(json.dumps({**stats, "more_kernel_cases": more, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@ Every file here is made with the JAX package (``zkir_tpu``) on the CPU:
 
 - ``trace_exact_2e16.npz``: the reference interpreter's trace dict for
   ``exact_trace_program(16)`` (65,536 rows ending in EBREAK), run with
-  ``TpuInterpreter(lanes=1, chunk=1024, collect_trace=True)``.  The port
-  has no interpreter yet, so this is the input of its full-size prove.
+  ``TpuInterpreter(lanes=1, chunk=1024, collect_trace=True)``: the
+  reference trace that the port's interpreter is held to on the GPU (valid
+  rows, column by column), and the input of its ``range_lookup=False``
+  full-size prove.
 - ``golden_a.proof.json`` / ``golden_a.matrix.npz``: the exact output of
   ``python -m zkir_tpu --platform cpu prove examples/fibonacci.zkasm
   --input 10`` (production ``FriConfig()``: 32 queries, 16 grinding bits,

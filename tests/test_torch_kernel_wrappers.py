@@ -180,3 +180,107 @@ def test_ntt_rows_layout_is_checked_not_copied():
         ntt._rows(x.T, "re")
     with pytest.raises(ValueError, match="unit stride"):
         ntt._rows(x[:, ::2], "re")
+
+
+# ============================================================================
+# K3's descriptor and state checks; the C entry points behind the wrappers
+# ============================================================================
+
+
+def _interp():
+    from zkir_tpu_torch.interp import InterpConfig, TpuInterpreter
+    from zkir_tpu_torch.spec import Instruction, Op, Program
+
+    program = Program.from_instructions([
+        Instruction(Op.LW, rd=1, rs1=0, imm=0x1000), Instruction(Op.EBREAK)])
+    return TpuInterpreter(program, InterpConfig(
+        lanes=3, chunk=8, low_bytes=1 << 13, stack_bytes=1 << 12,
+        collect_trace=True), device="cpu")
+
+
+def _enum_slots():
+    """The slot names of ``csrc/interp.cu``'s descriptor enum, in order."""
+    import re
+
+    from zkir_tpu_torch import _kernels
+
+    src = (_kernels.CSRC / "interp.cu").read_text()
+    body = re.search(r"enum \{(.*?)\};", src, re.S).group(1)
+    return [name.strip() for name in body.split(",") if name.strip()]
+
+
+def test_interp_descriptor_fills_the_kernels_slots():
+    from zkir_tpu_torch.interp import columnar as C
+
+    interp = _interp()
+    state = interp.init_state([[1], [2, 3], []])
+    slots = _enum_slots()
+    assert slots[-1] == "D_COUNT"
+    trace = {name: torch.zeros((8, 3, *tail), dtype=dt)
+             for name, (dt, tail) in C._TRACE_COLUMNS.items()}
+    desc = list(C._descriptor(interp.code, interp.n_words, state,
+                              interp.config, trace))
+    assert len(desc) == len(slots) - 1
+    at = dict(zip(slots, desc))
+    assert at["D_CODE"] == interp.code.data_ptr()
+    assert (at["D_N_WORDS"], at["D_LANES"], at["D_CHUNK"]) == (2, 3, 8)
+    assert at["D_REGS"] == state.regs.data_ptr()
+    assert at["D_MEM"] == state.mem.data_ptr()
+    assert at["D_MEM_STRIDE"] == (1 << 13) + (1 << 12)
+    assert (at["D_LOW_BYTES"], at["D_STACK_BYTES"]) == (1 << 13, 1 << 12)
+    assert (at["D_HAS_MEM"], at["D_COLLECT"]) == (1, 1)
+    assert (at["D_MAX_INPUTS"], at["D_MAX_OUTPUTS"]) == (64, 64)
+    assert at["D_OUT_POS"] == state.out_pos.data_ptr()
+    # The trace slots follow the order of the column table, T_<NAME>.
+    assert [s for s in slots if s.startswith("T_")] == [
+        f"T_{name.upper()}" for name in C._TRACE_COLUMNS]
+    assert at["T_RC_VALUE"] == trace["rc_value"].data_ptr()
+    without = list(C._descriptor(interp.code, interp.n_words, state,
+                                 interp.config, None))
+    assert len(without) == len(desc)
+    assert without[slots.index("D_COLLECT"):] == [0] * (
+        1 + len(C._TRACE_COLUMNS))
+
+
+def test_interp_state_is_checked_not_converted():
+    from zkir_tpu_torch.interp import columnar as C
+
+    interp = _interp()
+    state = interp.init_state([[1], [2, 3], []])
+    C._check_state(interp.code, state, interp.config)
+    with pytest.raises(TypeError, match="state.regs must be torch.int64"):
+        C._check_state(interp.code, state._replace(
+            regs=state.regs.to(torch.int32)), interp.config)
+    with pytest.raises(ValueError, match="state.mem must be"):
+        C._check_state(interp.code, state._replace(
+            mem=state.mem[:, :-1]), interp.config)
+    with pytest.raises(ValueError, match="not contiguous"):
+        C._check_state(interp.code, state._replace(
+            regs=torch.zeros((16, 3), dtype=torch.int64).T), interp.config)
+    with pytest.raises(ValueError, match="code must be"):
+        C._check_state(interp.code.to(torch.int64), state, interp.config)
+    with pytest.raises(ValueError, match="outside the code buffer"):
+        C.interp_chunk(interp.code, 3, state, interp.config)
+
+
+def test_every_entry_point_has_its_c_function():
+    import re
+
+    from zkir_tpu_torch import _kernels
+
+    src = "".join(f.read_text() for f in sorted(_kernels.CSRC.glob("*.cu")))
+    defined = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert set(_kernels._SIGNATURES) <= defined
+    assert set(_kernels.launches) == set(_kernels._SIGNATURES)
+    assert len(_kernels._SIGNATURES) == 8
+
+
+def test_sponge_hash_bytes_batch_equals_the_scalar_sponge():
+    from zkir_tpu_torch.ops import poseidon2 as p2
+    from zkir_tpu_torch.ops.poseidon2_ref import poseidon2_sponge_hash_bytes
+
+    rng = np.random.default_rng(5)
+    messages = [bytes(rng.integers(0, 256, size=n, dtype=np.uint8))
+                for n in (0, 1, 3, 4, 31, 32, 33, 64, 100)]
+    got = p2.sponge_hash_bytes_batch(messages, "cpu")
+    assert got.tolist() == [poseidon2_sponge_hash_bytes(m) for m in messages]

@@ -118,23 +118,28 @@ def test_build_tree_fused_and_paths():
         pm.build_tree(t(leaves[:6]))
 
 
-@pytest.mark.parametrize("bits", [1, 8])
+@pytest.mark.parametrize("bits", [0, 1, 2, 8])
 def test_grind_nonce(bits):
-    """Same transcript state, same lowest hitting nonce, same next draw.
-    The trial batch (2^(bits+2) states) differs per case; the nonce does
-    not depend on it.  (bits=1 reuses the [8, 16] permutation compiled
-    above.)"""
-    ref, port = RefChallenger(), Challenger()
-    for c in (ref, port):
+    """Same transcript state, same lowest hitting nonce, same next draw,
+    from ``Challenger.grind`` and from ``grind_plain`` on the sponge state
+    it searches.  The trial batch (2^(bits+2) states) differs per case;
+    the nonce does not depend on it.  (bits=1 reuses the [8, 16]
+    permutation compiled above.)"""
+    def transcript(cls):
+        c = cls()
         c.observe_many([7, 11, bits])
-        c.sample()
+        c.sample()                  # duplexes: nothing is left pending
+        return c
+
+    ref, port = transcript(RefChallenger), transcript(Challenger)
+    state = list(port._state)
     nonce = port.grind(bits)
     assert nonce == ref.grind(bits)
+    if bits:
+        assert nonce == pp.grind_plain(state, bits) \
+            == pp.grind(state, bits, "cpu")
     assert port.sample() == ref.sample()
-    verifier = Challenger()
-    verifier.observe_many([7, 11, bits])
-    verifier.sample()
-    assert verifier.check_pow(nonce, bits)
+    assert transcript(Challenger).check_pow(nonce, bits)
 
 
 def test_params_from_reference():

@@ -117,9 +117,8 @@ def test_violating_trace_is_refused():
 
 def test_unported_options_raise():
     matrix, _ = _golden("b")
-    for kwargs in ({"mesh": object()}, {"checkpoint_dir": "x"},
-                   {"range_lookup": True, "mesh": object()},
-                   {"range_lookup": True, "checkpoint_dir": "x"}):
+    for kwargs in ({"mesh": object()},
+                   {"range_lookup": True, "mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prove_trace(matrix, device="cpu", **kwargs)
     # range_lookup and program are ported; a program needs range_lookup.

@@ -46,6 +46,10 @@ _SIGNATURES = {
     "p2_permute": (_P, _P, _N),
     "p2_sponge_rows": (_P, _P, _N, _N, _I),
     "p2_compress_level": (_P, _P, _N),
+    # state, bits, start nonce, nonce limit, result
+    "p2_grind": (_P, _I, _N, _N, _P),
+    # host descriptor (csrc/interp.cu's enum)
+    "interp_chunk": (_P,),
 }
 
 launches = {name: 0 for name in _SIGNATURES}

@@ -1,0 +1,193 @@
+"""Command-line toolchain: assemble, disassemble, run, prove, verify.
+
+Counterpart of ``zkir_tpu/cli.py``, with the reference's arguments and
+printed lines.  Everything that computes runs on ``--device`` (default
+``cuda``); without a GPU and without ``--device cpu``, ``run``, ``prove``
+and ``verify`` fail with a message instead of running quietly on the CPU
+(``asm`` and ``disasm`` are host code).
+
+Usage:
+    python -m zkir_tpu_torch asm program.zkasm -o program.zkir
+    python -m zkir_tpu_torch disasm program.zkir
+    python -m zkir_tpu_torch run program.zkir --input 5
+    python -m zkir_tpu_torch prove program.zkir --input 5 --bind -o proof.json
+    python -m zkir_tpu_torch verify proof.json --binary program.zkir
+    python -m zkir_tpu_torch --device cpu prove program.zkasm --input 5
+
+Not ported: ``run``'s oracle and native engines (the one engine is
+``gpu``), ``prove --streaming`` and ``--mesh`` (they raise
+``NotImplementedError`` naming their ROADMAP items), and ``warm`` (there
+is no compile cache to fill).
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+
+
+def _load_program(path: str):
+    from .asm import assemble
+    from .spec import Program
+
+    p = pathlib.Path(path)
+    if p.suffix == ".zkasm":
+        return assemble(p.read_text())
+    return Program.from_bytes(p.read_bytes())
+
+
+def cmd_asm(args) -> int:
+    from .asm import assemble
+
+    program = assemble(pathlib.Path(args.source).read_text())
+    out = args.output or str(pathlib.Path(args.source).with_suffix(".zkir"))
+    pathlib.Path(out).write_bytes(program.to_bytes())
+    print(f"assembled {len(program.code)} instructions -> {out}")
+    return 0
+
+
+def cmd_disasm(args) -> int:
+    from .asm import disassemble
+
+    print(disassemble(_load_program(args.binary)), end="")
+    return 0
+
+
+def cmd_run(args) -> int:
+    from .interp import InterpConfig, TpuInterpreter
+
+    program = _load_program(args.binary)
+    inputs = [int(x, 0) for x in args.input]
+    interp = TpuInterpreter(program, InterpConfig(lanes=1, chunk=256),
+                            device=args.device)
+    result = interp.run([inputs], max_cycles=args.max_cycles)
+    print(f"halt={int(result['halted'][0])} "
+          f"cycles={int(result['cycles'][0])} "
+          f"exit={int(result['exit_code'][0])} "
+          f"outputs={[int(x) for x in result['outputs'][0]]}")
+    return 0
+
+
+def cmd_prove(args) -> int:
+    from .convert import proof_to_json
+    from .interp import InterpConfig, TpuInterpreter
+    from .prover import prove_trace, trace_to_matrix
+
+    if args.streaming:
+        raise NotImplementedError(
+            "prove --streaming is not ported to zkir_tpu_torch yet "
+            "(ROADMAP Queue 1 item 6: the streaming prover)")
+    if args.mesh:
+        raise NotImplementedError(
+            "prove --mesh is not ported to zkir_tpu_torch yet "
+            "(ROADMAP Queue 1 item 7: multi-GPU)")
+    device = args.device
+    program = _load_program(args.binary)
+    inputs = [int(x, 0) for x in args.input]
+    interp = TpuInterpreter(program, InterpConfig(
+        lanes=1, chunk=256, collect_trace=True), device=device)
+    result = interp.run([inputs], max_cycles=args.max_cycles)
+    matrix = trace_to_matrix(result["trace"], program=program)
+    if args.bind:
+        proof = prove_trace(matrix, range_lookup=True, program=program,
+                            checkpoint_dir=args.checkpoint_dir,
+                            device=device)
+    else:
+        proof = prove_trace(matrix, checkpoint_dir=args.checkpoint_dir,
+                            device=device)
+    out = args.output or "proof.json"
+    pathlib.Path(out).write_text(proof_to_json(proof))
+    print(f"proved {matrix.shape[0]} trace rows "
+          f"({int(result['cycles'][0])} cycles) -> {out}")
+    return 0
+
+
+def cmd_verify(args) -> int:
+    from .convert import proof_from_json
+    from .prover import verify_trace
+
+    proof = proof_from_json(pathlib.Path(args.proof).read_text())
+    program = _load_program(args.binary) if args.binary else None
+    if proof.get("program") and program is None:
+        print("error: program-bound proof requires the public program "
+              "(pass --binary); the memory argument's init demand is "
+              "recomputed from its code/data segments")
+        return 1
+    ok = verify_trace(proof, program=program, device=args.device)
+    print("VALID" if ok else "INVALID")
+    return 0 if ok else 1
+
+
+def _require_device(device: str) -> None:
+    """Fail, with a message, where the requested GPU is not there."""
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit(
+                "error: --device cuda (the default) needs an NVIDIA GPU and "
+                "torch.cuda.is_available() is false; pass --device cpu to "
+                "run the plain versions on the CPU")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="zkir_tpu_torch")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where the interpreter, prover and verifier "
+                             "run (cpu takes the kernels' plain versions)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("asm", help="assemble .zkasm to a .zkir binary")
+    p.add_argument("source")
+    p.add_argument("-o", "--output")
+    p.set_defaults(fn=cmd_asm)
+
+    p = sub.add_parser("disasm", help="disassemble a .zkir binary")
+    p.add_argument("binary")
+    p.set_defaults(fn=cmd_disasm)
+
+    p = sub.add_parser("run", help="execute a program")
+    p.add_argument("binary")
+    p.add_argument("--input", action="append", default=[],
+                   help="input tape value (repeatable)")
+    p.add_argument("--engine", choices=["gpu"], default="gpu",
+                   help="the batched interpreter (on --device)")
+    p.add_argument("--max-cycles", type=int, default=1_000_000)
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("prove", help="execute + prove the trace")
+    p.add_argument("binary")
+    p.add_argument("--input", action="append", default=[])
+    p.add_argument("--max-cycles", type=int, default=100_000)
+    p.add_argument("--bind", action="store_true",
+                   help="full soundness: in-circuit range lookups + "
+                        "program binding (pads the trace to >= 1024 rows)")
+    p.add_argument("--checkpoint-dir",
+                   help="persist per-stage prove artifacts here; a killed "
+                        "prove rerun with the same inputs resumes past "
+                        "completed stages (bit-identical proof)")
+    p.add_argument("--streaming", action="store_true",
+                   help="column-streaming prover (not ported yet)")
+    p.add_argument("--col-block", type=int, default=64,
+                   help="streaming column block size (default 64)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the prove over N devices (not ported yet)")
+    p.add_argument("-o", "--output")
+    p.set_defaults(fn=cmd_prove)
+
+    p = sub.add_parser("verify", help="verify a proof")
+    p.add_argument("proof")
+    p.add_argument("--binary",
+                   help="the public program; required to pin a "
+                        "program-bound proof to it")
+    p.set_defaults(fn=cmd_verify)
+
+    args = parser.parse_args(argv)
+    if args.fn in (cmd_run, cmd_prove, cmd_verify):   # the rest is host code
+        _require_device(args.device)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

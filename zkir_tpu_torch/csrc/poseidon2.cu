@@ -1,5 +1,6 @@
-// K2: the width-16 Poseidon2 permutation over M31, and the two ways the
-// prover feeds it: a row sponge (Merkle leaves) and a tree-level compression.
+// K2: the width-16 Poseidon2 permutation over M31, and the ways the prover
+// feeds it: a row sponge (Merkle leaves), a tree-level compression and the
+// transcript's proof-of-work search.
 //
 // Replaces the Pallas kernel `poseidon2_permute_pallas`
 // (zkir_tpu/ops/poseidon2.py, body `_poseidon2_kernel` with
@@ -87,7 +88,7 @@ __device__ __forceinline__ void full_round(uint32_t* x, int r) {
 }
 
 // The round loops stay rolled (a fully unrolled permutation inlined into
-// three kernels crashes the device front end, cicc); every state index is
+// every kernel crashes the device front end, cicc); every state index is
 // still a compile-time constant, so the state stays in registers.
 __device__ __forceinline__ void permute(uint32_t* x) {
     external_matrix(x);
@@ -162,6 +163,39 @@ __global__ void compress_level_kernel(const int64_t* __restrict__ in,
     for (int k = 0; k < RATE; ++k) out[i * RATE + k] = (int64_t)m31_add(x[k], l[k]);
 }
 
+// Proof-of-work search: the lowest nonce >= start whose trial state,
+// `state` with word 0 replaced by (state[0] + nonce) mod p, permutes to a
+// word RATE - 1 with its low `bits` bits clear (the transcript's next draw).
+// Each thread forms its candidates in registers and walks nonces
+// grid-stride in increasing order; a hit goes into `result` by atomicMin,
+// and a thread stops once `result` is below its next nonce.  A nonce below
+// the final result is therefore always tried by its thread, so the lowest
+// hit wins whatever the grid.  `result` starts at all ones; it stays so if
+// no nonce below `limit` hits.
+__global__ void grind_kernel(const int64_t* __restrict__ state, uint32_t mask,
+                             unsigned long long start, unsigned long long limit,
+                             unsigned long long* result) {
+    const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+    unsigned long long nonce =
+        start + (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+    uint32_t base[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH; ++k) base[k] = (uint32_t)state[k];
+#pragma unroll 1
+    for (; nonce < limit; nonce += stride) {
+        if (*(volatile unsigned long long*)result < nonce) return;
+        uint32_t x[WIDTH];
+#pragma unroll
+        for (int k = 1; k < WIDTH; ++k) x[k] = base[k];
+        x[0] = (uint32_t)((base[0] + nonce) % M31_P);
+        permute(x);
+        if ((x[RATE - 1] & mask) == 0) {
+            atomicMin(result, nonce);
+            return;
+        }
+    }
+}
+
 static unsigned blocks_for(long long n, int threads) {
     return (unsigned)((n + threads - 1) / threads);
 }
@@ -198,5 +232,22 @@ extern "C" int p2_compress_level(const void* in, void* out, long long m,
     const int threads = 128;
     compress_level_kernel<<<blocks_for(m, threads), threads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)in, (int64_t*)out, m);
+    return (int)cudaGetLastError();
+}
+
+// state: 16 words; result: one 8-byte word, all ones on entry.  The grid
+// holds the expected number of trials (2^bits; a search that misses in its
+// first round walks on), up to the card's 132 SMs x 2,048 threads.
+extern "C" int p2_grind(const void* state, int bits, long long start,
+                        long long limit, void* result, void* stream) {
+    if (bits < 1 || bits > 31 || start < 0 || limit <= start)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    long long want = 1ll << (bits > 18 ? 18 : bits);
+    unsigned blocks = blocks_for(want, threads);
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    grind_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)state, (1u << bits) - 1u, (unsigned long long)start,
+        (unsigned long long)limit, (unsigned long long*)result);
     return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@ launches kernel K2 (``csrc/poseidon2.cu``):
 - ``poseidon2_sponge_batch`` / ``merkle.hash_rows``: ``p2_sponge_rows``,
   one thread absorbing a whole row;
 - ``poseidon2_compress_level`` (and ``merkle.build_tree``):
-  ``p2_compress_level``, one tree level per launch.
+  ``p2_compress_level``, one tree level per launch;
+- ``sponge_hash_bytes_batch`` (the interpreter's Poseidon2 syscalls, all
+  paused lanes at once): ``p2_permute`` per block position;
+- ``grind``: ``p2_grind``, the transcript's proof-of-work search in one
+  launch (16 words up, one word down).
 
 On the CPU they run the plain versions below, which follow the
 reference's ``[16, N]`` layout (``_permute_t``): the batch on the minor
@@ -126,6 +130,31 @@ def compress_level_plain(level):
     return add_plain(out[:, :RATE], left)
 
 
+# Nonces are searched below this (the search is unbounded in expectation).
+GRIND_LIMIT = 1 << 34
+
+
+def grind_plain(state, bits: int, device="cpu") -> int:
+    """The lowest nonce whose trial state (``state``, 16 canonical words,
+    with word 0 replaced by ``(state[0] + nonce) mod p``) permutes to a
+    word ``RATE - 1`` with its low ``bits`` bits clear, in plain torch:
+    batches of candidate rows through ``permute_plain``.  The lowest hit
+    wins, so the batch size never changes the result."""
+    base = np.asarray(state, dtype=np.uint32)
+    mask = (1 << bits) - 1
+    batch = min(1 << (bits + 2), 1 << 16)
+    for start in range(0, GRIND_LIMIT, batch):
+        nonces = np.arange(start, start + batch, dtype=np.uint64)
+        states = np.broadcast_to(base, (batch, WIDTH)).copy()
+        states[:, 0] = ((base[0] + nonces) % P).astype(np.uint32)
+        out = permute_plain(
+            torch.from_numpy(states.astype(np.int64)).to(device))
+        hits = ((out[:, RATE - 1] & mask) == 0).nonzero()
+        if hits.numel():
+            return int(nonces[int(hits[0, 0])])
+    raise RuntimeError("grinding search exhausted")  # pragma: no cover
+
+
 # ============================================================================
 # Dispatching entry points
 # ============================================================================
@@ -151,6 +180,35 @@ def poseidon2_permute_batch(states):
         _kernels.launch("p2_permute", states.data_ptr(), out.data_ptr(),
                         states.shape[0])
     return out
+
+
+def sponge_hash_bytes_batch(messages, device):
+    """Sponge digests (int64 ``[n, 8]`` on ``device``) of ``n`` byte
+    strings of any lengths, as ``poseidon2_ref.poseidon2_sponge_hash_bytes``
+    gives them one by one: 4-byte little-endian words mod p, 1||0* padding,
+    rate-8 blocks.  Block position j is absorbed and permuted in one batch
+    over the messages that have more than j blocks."""
+    from .poseidon2_ref import bytes_to_field_elements
+
+    padded = []
+    for message in messages:
+        elements = bytes_to_field_elements(message) + [1]
+        padded.append(elements + [0] * (-len(elements) % RATE))
+    n_blocks = np.array([len(e) // RATE for e in padded], dtype=np.int64)
+    blocks = np.zeros((len(padded), int(n_blocks.max(initial=0)) * RATE),
+                      dtype=np.int64)
+    for k, elements in enumerate(padded):
+        blocks[k, :len(elements)] = elements
+    blocks = torch.from_numpy(blocks).to(device).reshape(len(padded), -1,
+                                                         RATE)
+    state = torch.zeros((len(padded), WIDTH), dtype=torch.int64,
+                        device=device)
+    for j in range(blocks.shape[1]):
+        live = torch.from_numpy(np.nonzero(n_blocks > j)[0]).to(device)
+        sub = state[live]
+        sub[:, :RATE] = add_plain(sub[:, :RATE], blocks[live, j])
+        state[live] = poseidon2_permute_batch(sub)
+    return state[:, :RATE]
 
 
 def _sponge_rows(matrix, pad: bool):
@@ -194,3 +252,25 @@ def poseidon2_compress_batch(left, right):
     permute(left || right)[:8] + left."""
     return poseidon2_compress_level(
         torch.stack([left, right], dim=1).reshape(-1, RATE))
+
+
+def grind(state, bits: int, device) -> int:
+    """The proof-of-work nonce for the sponge state ``state`` (16 words)
+    and ``bits`` >= 1 (see ``grind_plain``).  On a CUDA device one launch
+    of ``p2_grind`` searches, each thread forming its candidates in
+    registers; on the CPU the plain version does."""
+    if torch.device(device).type != "cuda":
+        return grind_plain(state, bits, device)
+    from .. import _kernels
+
+    if len(state) != WIDTH or not 1 <= bits <= 31:
+        raise ValueError(f"grind takes {WIDTH} words and 1..31 bits")
+    words = torch.tensor([int(w) for w in state], dtype=torch.int64,
+                         device=device)
+    result = torch.full((1,), -1, dtype=torch.int64, device=device)
+    _kernels.launch("p2_grind", words.data_ptr(), bits, 0, GRIND_LIMIT,
+                    result.data_ptr())
+    nonce = int(result.item())
+    if nonce < 0:
+        raise RuntimeError("grinding search exhausted")  # pragma: no cover
+    return nonce

@@ -64,42 +64,24 @@ class Challenger:
 
         Forces ~2^bits Poseidon2 permutations of prover work per
         transcript fork, adding ``bits`` to the soundness budget
-        (ethSTARK-style grinding).  The search runs as batched device
-        permutations — one trial is one row of ``poseidon2_permute_batch``
-        on a copy of the sponge state with the nonce absorbed at rate
-        position 0.  The lowest hitting nonce wins, so the batch size
-        never changes the result."""
+        (ethSTARK-style grinding).  One trial is one permutation of a copy
+        of the sponge state with the nonce absorbed at rate position 0;
+        the lowest hitting nonce wins.  The search is ``ops.poseidon2
+        .grind``: one kernel launch on a GPU, batches of plain torch
+        permutations on the CPU."""
         if bits == 0:
             return 0
-        import numpy as np
-        import torch
-
-        from ..ops.poseidon2 import poseidon2_permute_batch
+        from ..ops.poseidon2 import grind
 
         if self._absorb_buf:
             self._duplex()  # trials must share the post-permute state
-        base = np.asarray(self._state, dtype=np.uint32)
-        mask = (1 << bits) - 1
-        batch = min(1 << (bits + 2), 1 << 16)
-        start = 0
-        while start < (1 << 34):  # unbounded in expectation; hard stop
-            nonces = np.arange(start, start + batch, dtype=np.uint64)
-            states = np.broadcast_to(base, (batch, WIDTH)).copy()
-            states[:, 0] = ((base[0] + nonces) % M31_PRIME).astype(np.uint32)
-            out = poseidon2_permute_batch(
-                torch.from_numpy(states.astype(np.int64)).to(self.device)
-            ).cpu().numpy()
-            # sample() pops the squeeze buffer from the end: the first
-            # draw after a duplex is state[RATE - 1].
-            hits = np.nonzero((out[:, RATE - 1] & mask) == 0)[0]
-            if hits.size:
-                nonce = int(nonces[hits[0]])
-                self.observe(nonce)
-                check = self.sample_bits(min(bits, 30))
-                assert check == 0, "grind/duplex mismatch"
-                return nonce
-            start += batch
-        raise RuntimeError("grinding search exhausted")  # pragma: no cover
+        nonce = grind(self._state, bits, self.device)
+        self.observe(nonce)
+        # sample() pops the squeeze buffer from the end: the first draw
+        # after a duplex is state[RATE - 1], the word the search tested.
+        if self.sample_bits(min(bits, 30)) != 0:
+            raise RuntimeError("grind/duplex mismatch")
+        return nonce
 
     def check_pow(self, nonce: int, bits: int) -> bool:
         """Verifier side of ``grind``: absorb the claimed nonce and check

@@ -961,6 +961,60 @@ def _gather_rows(matrix_dev, indices):
     return {j: vals[k] for k, j in enumerate(idx)}
 
 
+class _StageStore:
+    """Per-stage prove checkpoints (elastic recovery): each heavy stage's
+    artifacts persist under ``dir/<key>.<stage>.pkl`` where the key binds
+    the full prove input (trace bytes + FRI config + program + flags).  A
+    killed prove rerun with the same inputs loads completed stages and
+    recomputes only the rest; all challenges are Fiat-Shamir, so the
+    resumed proof is bit-identical.  Device tensors are stored as numpy
+    uint32 words.  Corrupt/partial files (a kill mid-write) are treated as
+    absent — stages write to a temp file and rename, so a torn write
+    never wins.  The files are pickles: point ``directory`` only at files
+    this prover wrote."""
+
+    def __init__(self, directory, matrix, fri_config, range_lookup,
+                 program):
+        import hashlib
+        import os
+
+        os.makedirs(directory, exist_ok=True)
+        self.dir = directory
+        h = hashlib.sha256()
+        h.update(matrix.tobytes())
+        h.update(repr((matrix.shape, fri_config, range_lookup)).encode())
+        h.update(program.to_bytes() if program is not None else b"")
+        self.key = h.hexdigest()[:24]
+
+    def _path(self, stage):
+        import os
+
+        return os.path.join(self.dir, f"{self.key}.{stage}.pkl")
+
+    def load(self, stage):
+        import pickle
+
+        try:
+            with open(self._path(stage), "rb") as f:
+                return pickle.load(f)
+        except Exception:       # absent, torn or foreign: recompute
+            return None
+
+    def save(self, stage, obj) -> None:
+        import os
+        import pickle
+
+        tmp = self._path(stage) + f".tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            pickle.dump(obj, f, protocol=4)
+        os.replace(tmp, self._path(stage))
+
+
+def _to_store(t: torch.Tensor) -> np.ndarray:
+    """Canonical words of a device tensor as host uint32."""
+    return t.cpu().numpy().astype(np.uint32)
+
+
 def _stage_logger(device):
     """Opt-in stage timing (ZKIR_PROVE_LOG=1): one stderr line per prove
     stage, the device synchronised first so that each line holds the
@@ -1022,17 +1076,30 @@ def prove_trace(matrix: np.ndarray,
     (``preprocess_program``), and the first row is pinned to the entry
     point.
 
-    ``mesh`` and ``checkpoint_dir`` raise ``NotImplementedError``, naming
-    the ROADMAP item that ports them."""
+    With ``checkpoint_dir``, each heavy stage (trace commit, partial
+    sums, quotient, FRI) persists its artifacts there; a killed prove
+    rerun with identical inputs resumes past completed stages and emits
+    a bit-identical proof (all challenges are Fiat-Shamir).
+
+    ``mesh`` raises ``NotImplementedError``, naming the ROADMAP item that
+    ports it."""
     if mesh is not None:
         raise _not_ported("prove_trace(mesh=...)", "multi-GPU")
-    if checkpoint_dir is not None:
-        raise _not_ported("prove_trace(checkpoint_dir=...)",
-                          "_StageStore checkpoints")
     if program is not None and not range_lookup:
         raise ValueError("program binding requires range_lookup=True")
     log = _stage_logger(device)
     matrix = np.asarray(matrix, dtype=np.uint32)
+    store = (None if checkpoint_dir is None else
+             _StageStore(checkpoint_dir, matrix, fri_config, range_lookup,
+                         program))
+
+    def stage(name):
+        """The stage's stored artifacts, or None where it must run."""
+        ck = store.load(name) if store is not None else None
+        if ck is not None:
+            log(f"stage {name} resumed from its checkpoint")
+        return ck
+
     n_real = matrix.shape[0]
     padded, log_n = _pad_rows(matrix, min_log=10 if range_lookup else 2)
     prog = None
@@ -1071,14 +1138,25 @@ def prove_trace(matrix: np.ndarray,
     if extra is not None:
         cols = torch.cat([cols, _words(extra, device).T])
     cols = cols.contiguous()
-    ext_r, ext_i = lde(cols, None, log_n, fri_config.log_blowup,
-                       shift=shift)
+    ck = stage("commit")
+    if ck is not None:
+        ext_r = _words(ck["ext_r"], device)
+        ext_i = _words(ck["ext_i"], device)
+        levels1 = ck["levels1"]
+        trace_rows = _interleave_rows(ext_r, ext_i)
+    else:
+        ext_r, ext_i = lde(cols, None, log_n, fri_config.log_blowup,
+                           shift=shift)
+        log(f"lde done ({n_cols} cols)")
+        trace_rows = _interleave_rows(ext_r, ext_i)
+        levels1 = merkle.to_host(merkle.build_tree_fused(
+            merkle.hash_rows(trace_rows)))
+        if store is not None:
+            store.save("commit", {"ext_r": _to_store(ext_r),
+                                  "ext_i": _to_store(ext_i),
+                                  "levels1": levels1})
     if not range_lookup:
         del cols
-    log(f"lde done ({n_cols} cols)")
-    trace_rows = _interleave_rows(ext_r, ext_i)
-    levels1 = merkle.to_host(merkle.build_tree_fused(
-        merkle.hash_rows(trace_rows)))
     root1 = merkle.root(levels1)
     log(f"trace committed ({n_cols} cols, 2^{log_n} rows)")
 
@@ -1136,45 +1214,59 @@ def prove_trace(matrix: np.ndarray,
         gamma = challenger.sample_qm31() if prog is not None else None
         delta = challenger.sample_qm31()
         eta = challenger.sample_qm31()
-        s_chan = _build_partial_sums(cols, _words(witnesses, device), beta)
-        s_aux = _build_aux_partial_sums(cols, aux_pre["cols_dev"], beta,
-                                        eta)
-        slot_inv4 = _crypto_slot_inverses(cols, beta, delta)
-        _sm4, fm4 = _memory_partial_sum(cols, beta, delta)
-        # The memory F column carries the crypto-slot demands too
-        # (constraints.memory_multiset slot_sum); fold them in and
-        # rebuild its exclusive prefix sums (an int64 sum over the slots
-        # is exact).
-        slot_total = tuple(c.sum(dim=0) % P for c in slot_inv4)
-        fm4 = qm31_add(fm4, slot_total)
-        sm4 = _exclusive_cumsum4(fm4)
-        si4, fi4 = _io_partial_sum(cols, beta, delta)
-        scr4, fcr4 = _crypto_tape_partial_sum(cols, beta, delta)
-        groups = [s_chan, s_aux,
-                  tuple(c[None, :] for c in sm4),
-                  tuple(c[None, :] for c in fm4),
-                  tuple(c[None, :] for c in si4),
-                  tuple(c[None, :] for c in fi4),
-                  slot_inv4,
-                  tuple(c[None, :] for c in scr4),
-                  tuple(c[None, :] for c in fcr4)]
-        if prog is not None:
-            sp4 = _program_partial_sum(cols, prog["cols_dev"], beta, gamma)
-            groups.append(tuple(c[None, :] for c in sp4))
-        # [2 n_sums, n]: a-parts on top of b-parts, per CM31 coordinate.
-        s_r = torch.cat([g[k] for k in (0, 2) for g in groups], dim=0)
-        s_i = torch.cat([g[k] for k in (1, 3) for g in groups], dim=0)
-        del s_chan, s_aux, slot_inv4, _sm4, sm4, fm4, si4, fi4, scr4, fcr4
-        del slot_total, groups, cols
-        if prog is not None:
-            del sp4
-        log(f"partial sums built ({n_sums} QM31 columns)")
-        s_ext_r, s_ext_i = lde(s_r, s_i, log_n, fri_config.log_blowup,
-                               shift=shift)
-        del s_r, s_i
-        s_rows = _interleave_rows(s_ext_r, s_ext_i)
-        levels_s = merkle.to_host(
-            merkle.build_tree_fused(merkle.hash_rows(s_rows)))
+        ck = stage("sums")
+        if ck is not None:
+            s_ext_r = _words(ck["s_ext_r"], device)
+            s_ext_i = _words(ck["s_ext_i"], device)
+            levels_s = ck["levels_s"]
+            s_rows = _interleave_rows(s_ext_r, s_ext_i)
+            del cols
+        else:
+            s_chan = _build_partial_sums(cols, _words(witnesses, device),
+                                         beta)
+            s_aux = _build_aux_partial_sums(cols, aux_pre["cols_dev"], beta,
+                                            eta)
+            slot_inv4 = _crypto_slot_inverses(cols, beta, delta)
+            _sm4, fm4 = _memory_partial_sum(cols, beta, delta)
+            # The memory F column carries the crypto-slot demands too
+            # (constraints.memory_multiset slot_sum); fold them in and
+            # rebuild its exclusive prefix sums (an int64 sum over the
+            # slots is exact).
+            slot_total = tuple(c.sum(dim=0) % P for c in slot_inv4)
+            fm4 = qm31_add(fm4, slot_total)
+            sm4 = _exclusive_cumsum4(fm4)
+            si4, fi4 = _io_partial_sum(cols, beta, delta)
+            scr4, fcr4 = _crypto_tape_partial_sum(cols, beta, delta)
+            groups = [s_chan, s_aux,
+                      tuple(c[None, :] for c in sm4),
+                      tuple(c[None, :] for c in fm4),
+                      tuple(c[None, :] for c in si4),
+                      tuple(c[None, :] for c in fi4),
+                      slot_inv4,
+                      tuple(c[None, :] for c in scr4),
+                      tuple(c[None, :] for c in fcr4)]
+            if prog is not None:
+                sp4 = _program_partial_sum(cols, prog["cols_dev"], beta,
+                                           gamma)
+                groups.append(tuple(c[None, :] for c in sp4))
+            # [2 n_sums, n]: a-parts on top of b-parts, per CM31 coordinate.
+            s_r = torch.cat([g[k] for k in (0, 2) for g in groups], dim=0)
+            s_i = torch.cat([g[k] for k in (1, 3) for g in groups], dim=0)
+            del s_chan, s_aux, slot_inv4, _sm4, sm4, fm4, si4, fi4, scr4
+            del fcr4, slot_total, groups, cols
+            if prog is not None:
+                del sp4
+            log(f"partial sums built ({n_sums} QM31 columns)")
+            s_ext_r, s_ext_i = lde(s_r, s_i, log_n, fri_config.log_blowup,
+                                   shift=shift)
+            del s_r, s_i
+            s_rows = _interleave_rows(s_ext_r, s_ext_i)
+            levels_s = merkle.to_host(
+                merkle.build_tree_fused(merkle.hash_rows(s_rows)))
+            if store is not None:
+                store.save("sums", {"s_ext_r": _to_store(s_ext_r),
+                                    "s_ext_i": _to_store(s_ext_i),
+                                    "levels_s": levels_s})
         root_s = merkle.root(levels_s)
         log(f"partial sums committed ({n_sums} QM31 columns)")
         challenger.observe_many(int(x) for x in root_s)
@@ -1213,59 +1305,79 @@ def prove_trace(matrix: np.ndarray,
     n_rows = 1 << log_n
     lookup_kwargs = dict(lookup=lookup, aux=aux_args, program=program_args,
                          memory=memory_args, io=io_args, crypto=crypto_args)
-    q = quotient_evals(ext_r, ext_i, log_n, fri_config.log_blowup,
-                       shift, alpha_c, **lookup_kwargs)
-    log("quotient evaluated")
-    q_coef = [coset_intt(q[0], q[1], log_big, shift=shift),
-              coset_intt(q[2], q[3], log_big, shift=shift)]
-    del q
-    if selfcheck:
-        # Completeness self-check: Q is a polynomial of degree < 2n
-        # iff every constraint divides cleanly.  The chunking below
-        # DISCARDS coefficients [2n, 4n): catch a violated constraint
-        # here, at prove time, with a name.
-        bad = any(bool(c[2 * n_rows:].any())
-                  for pair in q_coef for c in pair)
-        if bad:
-            detail = diagnose_violations(
-                ext_r, ext_i, log_n, fri_config.log_blowup, shift,
-                **lookup_kwargs)
-            raise ConstraintViolation(
-                "trace violates the constraint system (quotient has "
-                f"degree >= 2n): {detail}")
+    ck = stage("quotient")
+    if ck is not None:
+        q_cm_cols = [(_words(ck[f"q{k}r"], device),
+                      _words(ck[f"q{k}i"], device)) for k in range(4)]
+        levels2 = ck["levels2"]
+    else:
+        q = quotient_evals(ext_r, ext_i, log_n, fri_config.log_blowup,
+                           shift, alpha_c, **lookup_kwargs)
+        log("quotient evaluated")
+        q_coef = [coset_intt(q[0], q[1], log_big, shift=shift),
+                  coset_intt(q[2], q[3], log_big, shift=shift)]
+        del q
+        if selfcheck:
+            # Completeness self-check: Q is a polynomial of degree < 2n
+            # iff every constraint divides cleanly.  The chunking below
+            # DISCARDS coefficients [2n, 4n): catch a violated constraint
+            # here, at prove time, with a name.
+            bad = any(bool(c[2 * n_rows:].any())
+                      for pair in q_coef for c in pair)
+            if bad:
+                detail = diagnose_violations(
+                    ext_r, ext_i, log_n, fri_config.log_blowup, shift,
+                    **lookup_kwargs)
+                raise ConstraintViolation(
+                    "trace violates the constraint system (quotient has "
+                    f"degree >= 2n): {detail}")
+        # CM31 coordinate columns in batch order:
+        # (chunk0_a, chunk0_b, chunk1_a, chunk1_b).
+        q_cm_cols = []
+        for j in range(2):
+            for coord in range(2):
+                # n_rows coefficients: the transform reads the rest as zero.
+                chunk = [q_coef[coord][part][j * n_rows:(j + 1) * n_rows]
+                         for part in range(2)]
+                q_cm_cols.append(coset_ntt(chunk[0], chunk[1], log_big,
+                                           shift=shift))
+        del q_coef
     del lookup_kwargs, lookup, aux_args, memory_args, io_args, crypto_args
     del program_args
-    # CM31 coordinate columns in batch order:
-    # (chunk0_a, chunk0_b, chunk1_a, chunk1_b).
-    q_cm_cols = []
-    for j in range(2):
-        for coord in range(2):
-            # n_rows coefficients: the transform reads the rest as zero.
-            chunk = [q_coef[coord][part][j * n_rows:(j + 1) * n_rows]
-                     for part in range(2)]
-            q_cm_cols.append(coset_ntt(chunk[0], chunk[1], log_big,
-                                       shift=shift))
-    del q_coef
     q_rows = torch.stack(
         [c for pair in q_cm_cols for c in pair], dim=1)   # [N, 8]
-    levels2 = merkle.to_host(merkle.build_tree_fused(
-        merkle.hash_rows(q_rows)))
+    if ck is None:
+        levels2 = merkle.to_host(merkle.build_tree_fused(
+            merkle.hash_rows(q_rows)))
+        if store is not None:
+            save = {"levels2": levels2}
+            for k in range(4):
+                save[f"q{k}r"] = _to_store(q_cm_cols[k][0])
+                save[f"q{k}i"] = _to_store(q_cm_cols[k][1])
+            store.save("quotient", save)
     root2 = merkle.root(levels2)
     log("quotient committed")
     challenger.observe_many(int(x) for x in root2)
     alpha_b = challenger.sample_qm31()
 
-    blocks = [(ext_r, ext_i)]
-    if range_lookup:
-        blocks.append((s_ext_r, s_ext_i))
-    blocks.append((torch.stack([c[0] for c in q_cm_cols]),
-                   torch.stack([c[1] for c in q_cm_cols])))
-    batch4 = _combine(blocks, alpha_b)
-    del ext_r, ext_i, s_ext_r, s_ext_i, q_cm_cols, blocks
-    fri_proof = fri_prove(batch4, log_big, challenger, fri_config,
-                          shift=shift)
-    del batch4
-    log("fri done")
+    # The challenger is not consulted after fri_prove, so a loaded FRI
+    # proof needs no transcript replay.
+    fri_proof = stage("fri")
+    if fri_proof is None:
+        blocks = [(ext_r, ext_i)]
+        if range_lookup:
+            blocks.append((s_ext_r, s_ext_i))
+        blocks.append((torch.stack([c[0] for c in q_cm_cols]),
+                       torch.stack([c[1] for c in q_cm_cols])))
+        batch4 = _combine(blocks, alpha_b)
+        del blocks
+        fri_proof = fri_prove(batch4, log_big, challenger, fri_config,
+                              shift=shift)
+        del batch4
+        log("fri done")
+        if store is not None:
+            store.save("fri", fri_proof)
+    del ext_r, ext_i, s_ext_r, s_ext_i, q_cm_cols
 
     # Phase 3: open commitment rows at the FRI query points (and their
     # next-row rotations for the transition constraints).  Only the

@@ -12,6 +12,18 @@ The trailing numbers are the trip counts of the kernel's loops (backward
 branches), in address order.  Prints the static instruction count, each
 loop's body, and the dynamic count = straight-line code + body x trips,
 split by opcode class.  Loops must not nest (the permutation's do not).
+
+For a kernel whose loop body branches on its data (the interpreter's
+cycle loop, one path per opcode):
+
+    python3 zkir_tpu_torch/tools/sass_count.py interp.sass interp_kernel --floor
+
+prints the instructions that every trip of the kernel's outermost loop
+executes whatever path it takes: those that no forward branch inside the
+loop can jump over (a branch past the loop's end leaves it and ends the
+count of trips) (an indirect branch counts as jumping to the end of the
+convergence region around it).  That is a floor on the instructions of one
+trip, so a time bound computed from it is a valid lower bound.
 """
 
 import collections
@@ -38,7 +50,39 @@ def instructions(path, kernel):
     return out
 
 
+def loop_floor(ins):
+    """(start, end, count) of the outermost loop and of its instructions
+    that no forward branch inside it can skip."""
+    back = [(int(m.group(1), 16), addr) for addr, _, text in ins
+            for m in [re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)]
+            if m and int(m.group(1), 16) < addr]
+    start, end = max(back, key=lambda se: se[1] - se[0])
+    skipped = []        # [lo, hi): addresses some forward branch jumps over
+    region_end = None
+    for addr, op, text in ins:
+        if not start <= addr <= end:
+            continue
+        m = re.search(r"\b(BRA|BSSY)\b.*?0x([0-9a-f]+)", text)
+        if m and m.group(1) == "BSSY":
+            region_end = int(m.group(2), 16)
+        elif m and addr < int(m.group(2), 16) <= end:   # not a loop exit
+            skipped.append((addr + 16, int(m.group(2), 16)))
+        elif op.startswith("BRX"):
+            skipped.append((addr + 16, region_end))
+    always = [a for a, _, _ in ins if start <= a <= end
+              and not any(lo <= a < hi for lo, hi in skipped)]
+    return start, end, len(always)
+
+
 def main():
+    if sys.argv[-1] == "--floor":
+        ins = instructions(sys.argv[1], sys.argv[2])
+        start, end, count = loop_floor(ins)
+        body = sum(1 for a, _, _ in ins if start <= a <= end)
+        print(f"{sys.argv[2]}: {len(ins)} static instructions; outermost "
+              f"loop {start:#x}..{end:#x} of {body}; every trip executes "
+              f"at least {count}")
+        return
     path, kernel, *trips = sys.argv[1:]
     trips = [int(t) for t in trips]
     ins = instructions(path, kernel)
