@@ -6,10 +6,17 @@ CUDA toolkit::
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero
+(``python3 chip_smoke.py --quotient`` runs only phase 2's quotient build
+and the quotient's comparisons on goldens C and E and the 2^16 main
+path):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
+   then generate and build the quotient's kernels for its three feature
+   sets from an empty build directory (the cold compile), and load them
+   once more in a fresh process (the warm load); print each part's
+   registers, spills and SASS instructions;
 3. hold each kernel entry point against its plain torch version on the
    card, for exact equality, at the main path's shapes (timed with CUDA
    events, beside the least time the card could take) and at a few more
@@ -21,7 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and a SHA-256 syscall) and require proofs equal (after a JSON round
    trip) to the stored reference proofs, and the port's verifier to
    accept them; golden E with a changed digest byte must be refused at
-   prove time with the violated terms named;
+   prove time with the violated terms named; hold the generated quotient
+   kernels against the plain ``VecAlg`` path on golden C's and E's
+   quotient inputs (as in phases 6 and 7 on the 2^16 ones);
 5. hold the interpreter kernel against its plain version on the card,
    chunk by chunk, exact on the whole state and on the valid trace rows:
    the 64 seeded fuzz programs on two lanes each, a memory, I/O and
@@ -40,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    batched terms), cold and warm; the two proofs must be equal, the
    port's verifier must accept them with the program, the interpreter's
    and every prover kernel must have been launched, and the NTT family
-   must launch nothing but ``cm31_ntt``;
+   must launch nothing but ``cm31_ntt``; no prove may compile a
+   quotient part (one build serves every proof of a feature set);
 8. the CLI as a user runs it, in subprocesses of ``python3 -m
    zkir_tpu_torch`` in a temporary directory: ``asm``, ``run``, ``prove``
    with and without ``--bind`` (proofs JSON-equal to goldens D and A),
@@ -104,7 +114,15 @@ KERNELS = {
     # The jitted lax.scan of the reference interpreter (XLA, not Pallas).
     "interp_chunk": ("zkir_tpu_torch/csrc/interp.cu",
                      "zkir_tpu/interp/columnar.py:1083"),
+    # The reference's jitted quotient (XLA, not Pallas): generated parts
+    # over csrc/quotient.cuh.
+    "quotient_part": ("zkir_tpu_torch/prover/quotient_codegen.py",
+                      "zkir_tpu/prover/constraints.py:2683"),
 }
+# The quotient's feature sets: (lookup, aux, memory, io, crypto, program).
+QUOTIENT_SETS = {"main path": (True,) * 6,
+                 "range_lookup, no program": (True,) * 5 + (False,),
+                 "range_lookup=False": (False,) * 6}
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
 # to the interpreter's Poseidon2 syscalls.
 MAIN_PATH_KERNELS = [k for k in KERNELS if k != "p2_permute"]
@@ -778,19 +796,169 @@ def phase_cli() -> dict:
     return stats
 
 
-def phase_goldens() -> None:
+def phase_quotient_build() -> dict:
+    """Generate and build the quotient's kernels for its three feature
+    sets from an empty build directory (every part at once, one nvcc
+    each), then time their load in a fresh process with the libraries
+    built; each part's registers, spills (``-Xptxas -v``) and SASS
+    instructions (``tools/sass_count.py``)."""
+    import shutil
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.prover import quotient_codegen as qc
+    from zkir_tpu_torch.tools.sass_count import instructions
+
+    shutil.rmtree(qc.BUILD, ignore_errors=True)
+    t0 = time.perf_counter()
+    qc.prepare(*QUOTIENT_SETS.values())
+    cold = time.perf_counter() - t0
+    code = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); "
+            "from zkir_tpu_torch.prover import quotient_codegen as qc; "
+            "t0 = time.perf_counter(); qc.prepare(*json.loads(sys.argv[2])); "
+            "print(time.perf_counter() - t0, qc.compiles)")
+    res = subprocess.run(
+        [sys.executable, "-c", code, str(ROOT),
+         json.dumps([list(f) for f in QUOTIENT_SETS.values()])],
+        capture_output=True, text=True, check=True, timeout=600)
+    warm, recompiled = res.stdout.split()
+    if int(recompiled):
+        raise AssertionError(f"the warm load compiled {recompiled} parts")
+    cuobjdump = pathlib.Path(_kernels._nvcc()).parent / "cuobjdump"
+    parts = {}
+    for name, features in QUOTIENT_SETS.items():
+        kernel = qc.prepare(features)[0]
+        rows = []
+        for part in kernel.parts:
+            base = qc.BUILD / f"part_{part.key}"
+            ptxas = base.with_suffix(".log").read_text()
+            regs = re.search(r"Used (\d+) registers", ptxas)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", ptxas)
+            sass = base.with_suffix(".sass")
+            sass.write_text(subprocess.run(
+                [str(cuobjdump), "-sass", str(base.with_suffix(".so"))],
+                capture_output=True, text=True, check=True).stdout)
+            rows.append({
+                "terms": [part.lo, part.hi], "m31_ops": part.n_ops,
+                "columns": len(part.leaves), "registers": int(regs[1]),
+                "spill_stores": int(spill[1]), "spill_loads": int(spill[2]),
+                "sass": len(instructions(sass, "quotient_part_kernel"))})
+        parts[name] = rows
+        log(f"quotient {name}: {len(rows)} parts; terms, registers, "
+            f"spills (bytes stored/loaded), SASS instructions: "
+            + "; ".join(f"{r['terms']} {r['registers']} "
+                        f"{r['spill_stores']}/{r['spill_loads']} {r['sass']}"
+                        for r in rows))
+    log(f"quotient kernels: {qc.compiles} parts compiled from an empty "
+        f"build directory in {cold:.1f} s; loaded in a fresh process with "
+        f"the libraries built in {float(warm):.2f} s")
+    return {"cold_build_s": cold, "warm_load_s": float(warm),
+            "compiled": qc.compiles, "parts": parts}
+
+
+@contextlib.contextmanager
+def quotient_calls():
+    """The arguments of every quotient evaluation the prover makes inside
+    the block, in a list."""
+    from zkir_tpu_torch.prover import prover as prover_mod
+
+    calls = []
+    real = prover_mod.quotient_evals
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    prover_mod.quotient_evals = spy
+    try:
+        yield calls
+    finally:
+        prover_mod.quotient_evals = real
+
+
+def quotient_bytes(kernel, n: int) -> int:
+    """The bytes the quotient must move at n points, in int64 words: each
+    column the recording reads once, the real and imaginary 1/Z rows of
+    each divisor tag its terms use once, and the [4, n] output once."""
+    tags = {tag for tag, _ in kernel.rec.terms}
+    return 8 * n * (len(kernel.rec.alg.leaves) + 2 * len(tags) + 4)
+
+
+def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
+    """The generated quotient kernels against the plain ``VecAlg`` path on
+    the same card tensors, all four QM31 words at every point.  One
+    evaluation must launch one ``quotient_part`` per part and nothing
+    else.  Bound: ``quotient_bytes`` at the memory rate, or the parts'
+    SASS instructions (straight-line code) per point at the card's
+    instruction rate.  The parts' re-reads of the columns they share are
+    a cost of the split, not of the function: ``split_bytes_ms`` reports
+    them apart."""
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.prover import constraints as cs
+    from zkir_tpu_torch.prover import quotient_codegen as qc
+
+    args, kwargs = call
+    kernel = qc.prepare(qc.features_of(kwargs))[0]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    cs.quotient_evals(*args, **kwargs)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _kernels.launches.items() if v}
+    if launched != {"quotient_part": len(kernel.parts)}:
+        raise AssertionError(f"quotient of {what}: launched {launched}, "
+                             f"{len(kernel.parts)} parts")
+    n = args[0].shape[1]
+    name = next(k for k, f in QUOTIENT_SETS.items() if f == kernel.features)
+    rows = quotient_stats["parts"][name]
+    columns = sum(len(p.leaves) + 2 * len({t for t, _ in
+                                           kernel.rec.terms[p.lo:p.hi]})
+                  for p in kernel.parts)
+    compare("quotient_part", lambda: cs.quotient_evals(*args, **kwargs),
+            lambda: cs.quotient_evals_plain(*args, **kwargs), 10, results,
+            plain_iters=2, key=key or f"quotient_part {what}",
+            bounds=bound(quotient_bytes(kernel, n),
+                         n * sum(r["sass"] for r in rows)))
+    # The wrapper's two halves apart: the host's table (alpha powers,
+    # challenge words, column addresses) and the parts' launches alone.
+    A, keys = cs._vec_alg(args[0], args[1], args[3], **kwargs)
+    table_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tab, offsets = kernel.table(A, keys, args[5])
+        table_s.append(time.perf_counter() - t0)
+    dinv = qc._dinv_rows(args[2], args[3], tuple(args[4]), args[0].device)
+    launches_ms = cuda_ms(lambda: kernel.launch(tab, offsets, dinv, n,
+                                                args[3]), 10)
+    r = results[key or f"quotient_part {what}"]
+    r.update(points=n, parts=len(kernel.parts), launches=len(kernel.parts),
+             column_reads=columns, split_bytes_ms=8 * n * (columns + 4)
+             / HBM_BYTES_PER_S * 1e3,
+             host_table_ms=1e3 * min(table_s), launches_only_ms=launches_ms)
+    log(f"quotient_part {what}: host table {1e3 * min(table_s):.3f} ms, "
+        f"the {len(kernel.parts)} launches alone {launches_ms:.4f} ms")
+
+
+def phase_goldens(results, quotient_stats) -> None:
     """Goldens A-E on the card: the port's proof equals the reference's
-    stored one, and the port's verifier accepts it."""
+    stored one, and the port's verifier accepts it; the quotient kernels
+    against their plain version on golden C's and E's inputs."""
     from zkir_tpu_torch.convert import fixture_from_reference, proof_to_json
     from zkir_tpu_torch.prover import prove_trace, verify_trace
 
     for name in "abcde":
         fx = fixture_from_reference(FIXTURES, f"golden_{name}")
         t0 = time.perf_counter()
-        proof = prove_trace(fx["matrix"], fx["config"],
-                            range_lookup=fx["want"]["range_lookup"],
-                            program=fx["program"], device="cuda")
+        with quotient_calls() as calls:
+            proof = prove_trace(fx["matrix"], fx["config"],
+                                range_lookup=fx["want"]["range_lookup"],
+                                program=fx["program"], device="cuda")
         dt = time.perf_counter() - t0
+        if name in "ce":
+            compare_quotient(f"golden {name}", calls[0], results,
+                             quotient_stats)
+        del calls
         if json.loads(proof_to_json(proof)) != fx["want"]:
             raise AssertionError(f"golden {name}: proof differs from the "
                                  "reference proof")
@@ -875,7 +1043,7 @@ def counted(prove, kernels):
     return proof, seconds, launches
 
 
-def phase_full() -> dict:
+def phase_full(results, quotient_stats) -> dict:
     import torch
 
     from zkir_tpu_torch import _kernels
@@ -968,7 +1136,10 @@ def phase_full() -> dict:
             def prove():
                 return prove_trace(ref_matrix, FriConfig(), device="cuda")
 
-            proof, first_s, launches = counted(prove, PROVER_KERNELS)
+            with quotient_calls() as calls:
+                proof, first_s, launches = counted(prove, PROVER_KERNELS)
+            compare_quotient("[2^18] range_lookup=False", calls[0], results,
+                             quotient_stats)
         else:
             # The main path, as the CLI's prove drives it: interpret on
             # the card, build the matrix, prove it with the program bound.
@@ -980,8 +1151,12 @@ def phase_full() -> dict:
                 return prove_trace(interpret()[1], FriConfig(),
                                    device="cuda", **kwargs)
 
-            proof, first_s, launches = counted(interpret_and_prove,
-                                               MAIN_PATH_KERNELS)
+            with quotient_calls() as calls:
+                proof, first_s, launches = counted(interpret_and_prove,
+                                                   MAIN_PATH_KERNELS)
+            compare_quotient("main path [2^18]", calls[0], results,
+                             quotient_stats, key="quotient_part")
+        del calls
         log(f"{key}: launches in the first prove: {launches}")
         warm, warm_s, stages, peak = logged_prove(prove)
         log(f"{key}: warm prove stages: {stages}")
@@ -1013,6 +1188,32 @@ def phase_full() -> dict:
     return stats
 
 
+def quotient_only(results) -> dict:
+    """``--quotient``: the quotient's build, then its kernels against the
+    plain version on golden C's and E's inputs and on the 2^16 main
+    path's."""
+    from zkir_tpu_torch.convert import (fixture_from_reference,
+                                        trace_from_reference)
+    from zkir_tpu_torch.prover import FriConfig, prove_trace, trace_to_matrix
+    from zkir_tpu_torch.prover.benchtrace import exact_trace_program
+
+    quotient_stats = phase_quotient_build()
+    for name in "ce":
+        fx = fixture_from_reference(FIXTURES, f"golden_{name}")
+        with quotient_calls() as calls:
+            prove_trace(fx["matrix"], fx["config"], range_lookup=True,
+                        program=fx["program"], device="cuda")
+        compare_quotient(f"golden {name}", calls[0], results, quotient_stats)
+    matrix = trace_to_matrix(trace_from_reference(
+        FIXTURES / "trace_exact_2e16.npz"))
+    with quotient_calls() as calls:
+        prove_trace(matrix, FriConfig(), device="cuda", range_lookup=True,
+                    program=exact_trace_program(16))
+    compare_quotient("main path [2^18]", calls[0], results, quotient_stats,
+                     key="quotient_part")
+    return {"quotient": quotient_stats, "kernel_cases": results}
+
+
 def main() -> int:
     import torch
 
@@ -1035,11 +1236,25 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({_kernels.library_path().name})")
 
+    from zkir_tpu_torch.prover import quotient_codegen
+
     results = {}
+    if sys.argv[1:] == ["--quotient"]:
+        print(json.dumps({**quotient_only(results), "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    quotient_stats = phase_quotient_build()
     phase_kernels(results)
-    phase_goldens()
+    phase_goldens(results, quotient_stats)
     interp_stats = phase_interp(results)
-    stats = {**phase_full(), "interp": interp_stats, "cli": phase_cli()}
+    stats = {**phase_full(results, quotient_stats), "interp": interp_stats,
+             "cli": phase_cli(), "quotient": quotient_stats}
+    if quotient_codegen.compiles != quotient_stats["compiled"]:
+        raise AssertionError("a prove compiled quotient parts: "
+                             f"{quotient_codegen.compiles} compiled, "
+                             f"{quotient_stats['compiled']} in the build")
 
     # launches: the path that owns the kernel (interpret and prove with
     # range_lookup=True and the program bound; for p2_permute the

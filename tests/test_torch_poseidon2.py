@@ -131,7 +131,8 @@ def test_grind_nonce(bits):
         c.sample()                  # duplexes: nothing is left pending
         return c
 
-    ref, port = transcript(RefChallenger), transcript(Challenger)
+    ref = transcript(RefChallenger)
+    port = transcript(lambda: Challenger(device="cpu"))
     state = list(port._state)
     nonce = port.grind(bits)
     assert nonce == ref.grind(bits)
@@ -140,6 +141,17 @@ def test_grind_nonce(bits):
             == pp.grind(state, bits, "cpu")
     assert port.sample() == ref.sample()
     assert transcript(Challenger).check_pow(nonce, bits)
+
+
+@pytest.mark.parametrize("bits", [1, 16])
+def test_grind_without_a_device_refuses(bits):
+    """A transcript made without a device (a verifier's) checks a nonce
+    but does not search for one: it names no device it was not given."""
+    c = Challenger()
+    c.observe_many([7, 11, bits])
+    with pytest.raises(ValueError, match="device"):
+        c.grind(bits)
+    assert c.grind(0) == 0
 
 
 def test_params_from_reference():

@@ -12,6 +12,10 @@ one), does not synchronise, and returns ``cudaGetLastError()``; ``launch``
 raises if that is not 0.  ``launches`` holds one plain count per kernel,
 raised by one where the kernel is launched and nowhere else.
 
+Generated sources (the quotient's parts, ``prover/quotient_codegen.py``)
+are compiled by ``build_generated`` with the same nvcc and flags, each
+into a library of its own.
+
 Nothing here runs at import time: the CPU tests import every module, and
 this machine need not have ``nvcc`` or a GPU.
 """
@@ -52,6 +56,8 @@ _SIGNATURES = {
     "interp_chunk": (_P,),
 }
 
+# One count per entry point; a module that builds kernels of its own
+# (prover/quotient_codegen.py) adds its count here.
 launches = {name: 0 for name in _SIGNATURES}
 
 _lib = None
@@ -99,6 +105,35 @@ def build() -> pathlib.Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def build_generated(sources, extra_flags=()) -> None:
+    """Compile each generated source ``X.cu`` into its own library
+    ``X.so`` beside it, one ``nvcc`` per source, all started together,
+    with this module's flags, ``extra_flags`` and ``csrc/`` on the include
+    path.  nvcc's messages go to ``X.log``.  Raises with nvcc's messages
+    if any source fails."""
+    nvcc = _nvcc()
+    jobs = []
+    for cu in sources:
+        so = cu.with_suffix(".so")
+        tmp = cu.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o",
+               str(tmp), str(cu)]
+        jobs.append((cu, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cu, so, tmp, proc in jobs:
+        messages = proc.communicate()[0]
+        cu.with_suffix(".log").write_text(messages)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {cu.name} ({proc.returncode}):"
+                          f"\n{messages}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _load():

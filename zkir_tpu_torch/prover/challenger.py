@@ -14,9 +14,10 @@ from ..ops.poseidon2_ref import RATE, WIDTH, poseidon2_permute
 
 
 class Challenger:
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         # Where grind() runs its trial permutations; nothing else in the
-        # transcript touches a device.
+        # transcript touches a device.  Without one (a verifier's
+        # transcript) grind() refuses: it never picks a device itself.
         self.device = device
         self._state = [0] * WIDTH
         self._absorb_buf: List[int] = []
@@ -71,6 +72,9 @@ class Challenger:
         permutations on the CPU."""
         if bits == 0:
             return 0
+        if self.device is None:
+            raise ValueError("Challenger.grind searches on a device: "
+                             "construct the Challenger with device=...")
         from ..ops.poseidon2 import grind
 
         if self._absorb_buf:

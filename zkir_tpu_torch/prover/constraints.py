@@ -4,9 +4,11 @@ Counterpart of ``zkir_tpu/prover/constraints.py``.  The constraint system
 (``air_constraints`` .. ``quotient_terms``) is the reference's code,
 copied unchanged: it calls only the algebra object.  The port supplies a
 torch ``VecAlg`` for the prover's whole-domain evaluation; ``ScalarAlg``,
-``quotient_value_at`` and the divisor tables are host copies.  Of the
-reference's quotient paths only the eager one is ported: the jitted,
-part-split and AOT-cached ones work around XLA compile time.
+``quotient_value_at`` and the divisor tables are host copies.  On CUDA
+tensors ``quotient_evals`` runs the counterpart of the reference's jitted
+quotient: the terms recorded once and generated as CUDA kernels
+(``quotient_codegen.py``); on CPU tensors the eager ``VecAlg`` path, the
+reference's CPU branch, is the plain version.
 
 Constraint set:
 
@@ -591,6 +593,22 @@ class VecAlg:
 
     def asnxt(self, k):
         return self._pair_nxt(self.ascol(k))
+
+    def column_bases(self):
+        """Accessor name -> the tensors its components come from: an
+        accessor with an argument k returns row k of each, one without
+        returns them whole (a next-row accessor rolls its base
+        accessor's).  The generated quotient kernels address columns by
+        this layout."""
+        mem = self._mem_sum or (None, None)
+        io = self._io_sum or (None, None)
+        cr = self._cr_sums or (None, None, None)
+        return {"col": (self.ext_r, self.ext_i), "scol": self._chan_sums,
+                "mcol": mem[0], "mfcol": mem[1], "iocol": io[0],
+                "iofcol": io[1], "crinv": cr[0], "crcol": cr[1],
+                "crfcol": cr[2], "pscol": self._prog_sum,
+                "pcol": self._prog_ext, "acol": self._aux_ext,
+                "ascol": self._aux_sums}
 
     # --- QM31 half of the interface (4-tuples of [N] int64 tensors) ---
 
@@ -2130,11 +2148,11 @@ def quotient_terms(A, lookup=None, aux=None, memory=None, program=None,
 # ============================================================================
 
 
-def _vec_terms(ext_r, ext_i, log_blowup: int, lookup, aux, program, memory,
-               io, crypto):
-    """The torch ``VecAlg`` over the committed columns and every quotient
-    term evaluated on it, from the prover-side arguments of
-    ``quotient_evals``."""
+def _vec_alg(ext_r, ext_i, log_blowup: int, lookup=None, aux=None,
+             program=None, memory=None, io=None, crypto=None):
+    """The torch ``VecAlg`` over the committed columns, and the keyword
+    arguments of ``quotient_terms`` (its challenges), from the
+    prover-side arguments of ``quotient_evals``."""
     chan_sums = mem_sum = prog_sum = prog_ext = None
     aux_ext = aux_sums = io_sum = cr_sums = None
     lk = ak = mk = pk = ik = ck = None
@@ -2160,8 +2178,18 @@ def _vec_terms(ext_r, ext_i, log_blowup: int, lookup, aux, program, memory,
                mem_sum=mem_sum, prog_sum=prog_sum, prog_ext=prog_ext,
                aux_ext=aux_ext, aux_sums=aux_sums, io_sum=io_sum,
                cr_sums=cr_sums)
-    return A, quotient_terms(A, lookup=lk, aux=ak, memory=mk, program=pk,
-                             io=ik, crypto=ck)
+    return A, dict(lookup=lk, aux=ak, memory=mk, program=pk, io=ik,
+                   crypto=ck)
+
+
+def _vec_terms(ext_r, ext_i, log_blowup: int, lookup, aux, program, memory,
+               io, crypto):
+    """The torch ``VecAlg`` over the committed columns and every quotient
+    term evaluated on it, from the prover-side arguments of
+    ``quotient_evals``."""
+    A, keys = _vec_alg(ext_r, ext_i, log_blowup, lookup, aux, program,
+                       memory, io, crypto)
+    return A, quotient_terms(A, **keys)
 
 
 def quotient_evals(ext_r, ext_i, log_n: int, log_blowup: int,
@@ -2181,8 +2209,27 @@ def quotient_evals(ext_r, ext_i, log_n: int, log_blowup: int,
     (slot inverses [N_SLOTS], tape S, tape F) — the crypto-syscall
     binding (requires ``memory``).
 
-    The reference's eager branch: every term is evaluated on a torch
-    ``VecAlg`` and accumulated per divisor tag."""
+    CUDA tensors take the generated kernels
+    (``quotient_codegen.quotient_evals_cuda``), CPU tensors the plain
+    version ``quotient_evals_plain``."""
+    args = dict(lookup=lookup, aux=aux, program=program, memory=memory,
+                io=io, crypto=crypto)
+    if ext_r.is_cuda:
+        from .quotient_codegen import quotient_evals_cuda
+
+        return quotient_evals_cuda(ext_r, ext_i, log_n, log_blowup, shift,
+                                   alpha, **args)
+    return quotient_evals_plain(ext_r, ext_i, log_n, log_blowup, shift,
+                                alpha, **args)
+
+
+def quotient_evals_plain(ext_r, ext_i, log_n: int, log_blowup: int,
+                         shift: Tuple[int, int], alpha: Tuple[int, int],
+                         lookup=None, aux=None, program=None, memory=None,
+                         io=None, crypto=None):
+    """``quotient_evals`` as the reference's eager branch, on any device:
+    every term evaluated on a torch ``VecAlg`` and accumulated per
+    divisor tag."""
     A, terms = _vec_terms(ext_r, ext_i, log_blowup, lookup, aux, program,
                           memory, io, crypto)
     return _accumulate_quotient(A, terms,

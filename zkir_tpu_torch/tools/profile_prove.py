@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc::
 
-    python3 zkir_tpu_torch/tools/profile_prove.py [--bound]
+    python3 zkir_tpu_torch/tools/profile_prove.py [--bound] [--interpret]
 
 Proves the 2^16 x 493 benchmark trace (the fixture of ``chip_smoke.py``)
 once to warm up, three times for wall time, once with
@@ -11,7 +11,10 @@ once to warm up, three times for wall time, once with
 ``cProfile``: the functions by own time and by cumulative time.  The
 device is idle for most of a prove, so the host profile is where the
 time is.  With ``--bound`` the prove is the full constraint set with the
-program bound (``range_lookup=True, program=...``).
+program bound (``range_lookup=True, program=...``).  With
+``--interpret`` the matrix is made as the main path makes it before the
+proves: ``exact_trace_program(16)`` run on the card by the interpreter,
+then ``trace_to_matrix`` (both kept alive, as a CLI prove keeps them).
 """
 
 from __future__ import annotations
@@ -41,8 +44,20 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     fixtures = ROOT / "tests" / "fixtures" / "torch_port"
-    matrix = trace_to_matrix(trace_from_reference(
-        fixtures / "trace_exact_2e16.npz"))
+    if "--interpret" in sys.argv[1:]:
+        from zkir_tpu_torch.interp import InterpConfig, TpuInterpreter
+        from zkir_tpu_torch.prover.benchtrace import exact_trace_program
+
+        t0 = time.perf_counter()
+        trace = TpuInterpreter(exact_trace_program(16), InterpConfig(
+            lanes=1, chunk=1024, collect_trace=True), device="cuda").run(
+                [[]], max_cycles=1 << 17)["trace"]
+        matrix = trace_to_matrix(trace)
+        print(f"interpreted and built the matrix in "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
+    else:
+        matrix = trace_to_matrix(trace_from_reference(
+            fixtures / "trace_exact_2e16.npz"))
     kwargs = {}
     if "--bound" in sys.argv[1:]:
         from zkir_tpu_torch.spec import Program
