@@ -31,20 +31,30 @@ path):
    prove time with the violated terms named; hold the generated quotient
    kernels against the plain ``VecAlg`` path on golden C's and E's
    quotient inputs (as in phases 6 and 7 on the 2^16 ones);
-5. hold the interpreter kernel against its plain version on the card,
-   chunk by chunk, exact on the whole state and on the valid trace rows:
+5. hold the interpreter kernel against its plain version on the card:
+   ``interp_chunk`` (``interp_run`` over one chunk) chunk by chunk, exact
+   on the whole state and on the
+   valid trace rows, and ``TpuInterpreter.run`` (``interp_run``, the
+   whole run in segments) against the reference's host loop over the
+   plain chunk (result and trace dicts word for word, invalid rows 0):
    the 64 seeded fuzz programs on two lanes each, a memory, I/O and
-   Poseidon2-syscall program on 1,024 lanes with a tape per lane (run
-   once more through ``TpuInterpreter.run``: the path that owns
-   ``p2_permute``), and golden E's program (SHA-256 pause and resume,
-   its matrix equal to the stored one); the proof-of-work search against
-   its plain version; the interpreter's cycles per second on the
-   reference benchmark's loop program at 65,536 and 8,192 lanes;
+   Poseidon2-syscall program on 1,024 lanes with a tape per lane (the
+   path that owns ``p2_permute``), a program whose lanes pause on
+   Poseidon2 syscalls at different chunks and run ahead of each other
+   (4 lanes, a warp each; 2,048, a thread each), the same with a
+   ``max_cycles`` that is not a multiple of the chunk,
+   and golden E's program (SHA-256 pause and resume, its matrix equal to
+   the stored one); the proof-of-work search against its plain version;
+   one lane's clocks per cycle by phase (``tools/interp_bench.py``); the
+   interpreter's cycles per second on the reference benchmark's loop
+   program at 65,536 and 8,192 lanes, and both layouts (a thread or a
+   warp per lane) from 1 to 65,536 lanes, and with a trace from 1 to
+   1,024 (the wrapper's pick must be the faster);
 6. prove the 2^16-row benchmark trace (493 columns, production
    ``FriConfig()``) without ``range_lookup`` once, and verify it;
 7. the main path at full width: ``exact_trace_program(16)`` interpreted
-   on the card (its trace must equal the stored reference trace on valid
-   rows), the matrix proved with ``range_lookup=True`` and its program
+   on the card in one ``interp_run`` launch (its trace must equal the
+   stored reference trace on valid rows), the matrix proved with ``range_lookup=True`` and its program
    bound (596 committed trace columns, 119 QM31 partial-sum columns, 838
    batched terms), cold and warm; the two proofs must be equal, the
    port's verifier must accept them with the program, the interpreter's
@@ -52,14 +62,16 @@ path):
    must launch nothing but ``cm31_ntt``; no prove may compile a
    quotient part (one build serves every proof of a feature set);
 8. the CLI as a user runs it, in subprocesses of ``python3 -m
-   zkir_tpu_torch`` in a temporary directory: ``asm``, ``run``, ``prove``
+   zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with both
+   engines (native: the reference's line and exit code at a cycle limit;
+   gpu), ``prove``
    with and without ``--bind`` (proofs JSON-equal to goldens D and A),
    ``verify`` (accepting, and refusing another program), and ``prove
    --checkpoint-dir`` resumed after its last stage's file was deleted.
 
 The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
-run of phase 7, or for ``p2_permute`` the syscall run of phase 5; max
+run of phase 7, for ``p2_permute`` the syscall run of phase 5; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
 timed cases; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -111,9 +123,10 @@ KERNELS = {
                           "zkir_tpu/ops/poseidon2.py:261"),
     "p2_grind": ("zkir_tpu_torch/csrc/poseidon2.cu",
                  "zkir_tpu/ops/poseidon2.py:261"),
-    # The jitted lax.scan of the reference interpreter (XLA, not Pallas).
-    "interp_chunk": ("zkir_tpu_torch/csrc/interp.cu",
-                     "zkir_tpu/interp/columnar.py:1083"),
+    # The jitted lax.scan of the reference interpreter (XLA, not Pallas),
+    # and the reference's host loop of chunks around it.
+    "interp_run": ("zkir_tpu_torch/csrc/interp.cu",
+                   "zkir_tpu/interp/columnar.py:1083"),
     # The reference's jitted quotient (XLA, not Pallas): generated parts
     # over csrc/quotient.cuh.
     "quotient_part": ("zkir_tpu_torch/prover/quotient_codegen.py",
@@ -126,11 +139,13 @@ QUOTIENT_SETS = {"main path": (True,) * 6,
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
 # to the interpreter's Poseidon2 syscalls.
 MAIN_PATH_KERNELS = [k for k in KERNELS if k != "p2_permute"]
-PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_chunk"]
-# Instructions every cycle executes in the built interpreter kernel,
-# whatever its opcode (a floor: zkir_tpu_torch/tools/sass_count.py --floor
-# on interp_kernel's SASS, 1,784 static instructions, 1,390 in the cycle
-# loop), and the bytes of one trace row.
+PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
+# Instructions every cycle executes in the interpreter kernel, whatever its
+# opcode: a floor, zkir_tpu_torch/tools/sass_count.py --floor on the
+# older kernel, a thread per lane decoding each word every cycle (1,784
+# static instructions, 1,390 in the cycle loop).  The bound takes the
+# built kernel's own floor where it is lower (interp_floor), never a
+# higher one.  Then the bytes of one trace row.
 INTERP_INSTR_PER_CYCLE = 140
 SM_CLOCK_HZ = 1.98e9
 TRACE_ROW_BYTES = 244
@@ -190,12 +205,13 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def interp_bound(n_bytes: float, cycles: int, lanes: int) -> dict:
+def interp_bound(n_bytes: float, cycles: int, lanes: int,
+                 instr: int = INTERP_INSTR_PER_CYCLE) -> dict:
     """The interpreter kernel's bound: bytes as in ``bound``; its
-    instructions (the floor per cycle) at the card's issue rate, or, where
-    the lanes are too few to reach that, at one instruction a clock for
-    each lane's thread (a lane is one sequential machine)."""
-    n_ops = INTERP_INSTR_PER_CYCLE * cycles * lanes
+    instructions (``instr`` a cycle, a floor) at the card's instruction rate,
+    or, where the lanes are too few to reach that, at one instruction a
+    clock for each lane (a lane is one sequential machine)."""
+    n_ops = instr * cycles * lanes
     rate = min(INT_OPS_PER_S, lanes * SM_CLOCK_HZ)
     return bound(n_bytes, n_ops * INT_OPS_PER_S / rate)
 
@@ -468,45 +484,95 @@ def phase_kernels(results) -> None:
     log("poseidon2 KATs: exact")
 
 
-def interp_flat(state, trace):
-    """A machine state and the valid rows of a chunk's trace as a tuple of
-    int64 tensors, for ``max_abs_err``."""
+def interp_flat(state, trace, valid_only=True):
+    """A machine state and the rows of a trace (the valid ones, or all)
+    as a tuple of int64 tensors, for ``max_abs_err``."""
     import torch
 
     out = [t.to(torch.int64) for t in state]
     if trace is not None:
         valid = trace["valid"]
         out.append(valid.to(torch.int64))
-        out += [t[valid].to(torch.int64) for k, t in trace.items()
-                if k != "valid"]
+        out += [(t[valid] if valid_only else t).to(torch.int64)
+                for k, t in trace.items() if k != "valid"]
     return tuple(out)
 
 
-def interp_both(name, interp, inputs, max_chunks=64):
-    """Run ``interp`` from its initial state through the kernel and through
-    the plain version side by side on the card, holding state and valid
-    trace rows equal after every chunk (and servicing paused syscalls in
-    both).  Returns the cycles run."""
+def same_result(name, got, want) -> None:
+    """Two result dicts of ``TpuInterpreter`` equal word for word: every
+    key, and every trace column in shape, dtype and value."""
+    import numpy as np
+
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: keys {sorted(got)} != {sorted(want)}")
+    for key in want:
+        if key == "trace":
+            for col, w in want["trace"].items():
+                g = got["trace"][col]
+                if g.shape != w.shape or g.dtype != w.dtype \
+                        or not np.array_equal(g, w):
+                    raise AssertionError(f"{name}: trace[{col!r}] differs")
+        elif key == "outputs":
+            if [list(map(int, o)) for o in got[key]] != \
+                    [list(map(int, o)) for o in want[key]]:
+                raise AssertionError(f"{name}: outputs differ")
+        elif not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"{name}: {key} differs")
+
+
+def interp_both(name, interp, inputs, max_cycles=None, must_halt=True):
+    """Run ``interp`` from its initial state three ways on the card: chunk
+    by chunk through the kernel (``interp_chunk``) and through the plain
+    version side by side, holding state and valid trace rows equal after
+    every chunk (and servicing paused syscalls in both); and whole through
+    ``TpuInterpreter.run`` (``interp_run``), whose result and trace dicts
+    must equal word for word those of the plain chunks in the reference's
+    host loop (at most ``ceil(max_cycles / chunk)`` chunks, default 64;
+    invalid rows 0).  Returns (cycles run, the run's result, the run's
+    launches)."""
     import torch
 
-    from zkir_tpu_torch.interp import (HALT_NONE, PAUSE_CRYPTO,
-                                       interp_chunk, interp_chunk_plain)
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.interp import (HALT_CYCLE_LIMIT, HALT_NONE,
+                                       PAUSE_CRYPTO, interp_chunk,
+                                       interp_chunk_plain)
 
+    cfg = interp.config
+    if max_cycles is None:
+        max_cycles = 64 * cfg.chunk
     sk = sp = interp.init_state(inputs)
-    for chunk in range(max_chunks):
-        sk, tk = interp_chunk(interp.code, interp.n_words, sk, interp.config)
-        sp, tp = interp_chunk_plain(interp.code, interp.n_words, sp,
-                                    interp.config)
+    traces = []
+    for chunk in range(max(1, -(-max_cycles // cfg.chunk))):
+        sk, tk = interp_chunk(interp.code, interp.n_words, sk, cfg)
+        sp, tp = interp_chunk_plain(interp.code, interp.n_words, sp, cfg)
         torch.cuda.synchronize()
         max_abs_err(f"{name}, chunk {chunk}", interp_flat(sk, tk),
                     interp_flat(sp, tp))
+        if tp is not None:
+            traces.append({k: torch.where(
+                tp["valid"].reshape(*tp["valid"].shape,
+                                    *[1] * (v.dim() - 2)),
+                v, torch.zeros_like(v)) for k, v in tp.items()})
         if bool((sk.halted == PAUSE_CRYPTO).any()):
             sk, sp = interp._service_crypto(sk), interp._service_crypto(sp)
             max_abs_err(f"{name}, syscalls of chunk {chunk}",
                         interp_flat(sk, None), interp_flat(sp, None))
         if not bool((sk.halted == HALT_NONE).any()):
-            return int(sk.cycles.sum())
-    raise AssertionError(f"{name}: still running after {max_chunks} chunks")
+            break
+    else:
+        if must_halt:
+            raise AssertionError(f"{name}: still running after {chunk + 1} "
+                                 "chunks")
+        sp = sp._replace(halted=torch.where(
+            sp.halted == HALT_NONE,
+            torch.full_like(sp.halted, HALT_CYCLE_LIMIT), sp.halted))
+    want = interp._collect(sp, traces, len(traces) * cfg.chunk)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = interp.run(inputs, max_cycles=max_cycles)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    same_result(f"{name}, TpuInterpreter.run", got, want)
+    return int(sk.cycles.sum()), got, launches
 
 
 def lanes_program():
@@ -562,34 +628,83 @@ def lanes_program():
     return Program.from_instructions(ins + loop + tail)
 
 
-def bench_loop_program():
-    """The reference benchmark's interpreter loop: six instructions, no
-    memory."""
+def staggered_program():
+    """Lanes that pause at different chunks: a busy loop of a
+    tape-dependent length, then a tape-dependent number of rounds of
+    READ, a store, a Poseidon2 syscall over it (a pause), a load of the
+    digest and a WRITE; then EXIT."""
     from zkir_tpu_torch.spec import Instruction as I, Op, Program
 
-    return Program.from_instructions([
-        I(Op.ADDI, rd=1, rs1=0, imm=7), I(Op.ADD, rd=2, rs1=2, rs2=1),
-        I(Op.MUL, rd=3, rs1=2, rs2=1), I(Op.XOR, rd=4, rs1=3, rs2=2),
-        I(Op.SLT, rd=5, rs1=4, rs2=2), I(Op.JAL, rd=0, imm=-20)])
+    ins = [
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ -> r10
+        I(Op.ANDI, rd=7, rs1=10, imm=0x3F),
+        I(Op.ADDI, rd=7, rs1=7, imm=1),                      # 1..64
+        I(Op.ANDI, rd=9, rs1=10, imm=0x3),
+        I(Op.ADDI, rd=9, rs1=9, imm=1),                      # 1..4 rounds
+        I(Op.ADDI, rd=7, rs1=7, imm=-1),                     # busy loop
+        I(Op.BNE, rs1=7, rs2=0, imm=-4),
+        I(Op.ADDI, rd=15, rs1=0, imm=0x6000),
+    ]
+    loop = [
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ -> r10
+        I(Op.SD, rs1=15, rs2=10, imm=0),
+        I(Op.ADDI, rd=11, rs1=15, imm=0),
+        I(Op.ADDI, rd=12, rs1=0, imm=8),
+        I(Op.ADDI, rd=13, rs1=0, imm=0x6100),
+        I(Op.ADDI, rd=10, rs1=0, imm=4), I(Op.ECALL),        # POSEIDON2
+        I(Op.LD, rd=11, rs1=13, imm=0),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL),        # WRITE r11
+        I(Op.ADDI, rd=15, rs1=15, imm=8),
+        I(Op.ADDI, rd=9, rs1=9, imm=-1),
+    ]
+    loop.append(I(Op.BNE, rs1=9, rs2=0, imm=-4 * len(loop)))
+    tail = [I(Op.ADDI, rd=11, rs1=15, imm=0),
+            I(Op.ADDI, rd=10, rs1=0, imm=0), I(Op.ECALL)]    # EXIT
+    return Program.from_instructions(ins + loop + tail)
+
+
+def interp_floor() -> dict:
+    """Instructions every cycle executes in each layout of the built
+    interpreter kernel (``tools/sass_count.py`` floor of its cycle loop),
+    capped at ``INTERP_INSTR_PER_CYCLE``: the bound never loosens."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.tools.sass_count import cycle_loop_floor, instructions
+
+    cuobjdump = pathlib.Path(_kernels._nvcc()).parent / "cuobjdump"
+    sass = _kernels.BUILD / "interp.sass"
+    sass.write_text(subprocess.run(
+        [str(cuobjdump), "-sass", str(_kernels.library_path())],
+        capture_output=True, text=True, check=True).stdout)
+    out = {}
+    for layout, name in (("warp", "interp_kernelILb1"),
+                         ("thread", "interp_kernelILb0")):
+        static, floor = cycle_loop_floor(instructions(sass, name))
+        out[layout] = {"static": static, "floor": floor,
+                       "bound_instr": min(floor, INTERP_INSTR_PER_CYCLE)}
+    log(f"interp_kernel SASS (static instructions of the cycle loop, the "
+        f"floor every cycle executes): {out}")
+    return out
 
 
 def phase_interp(results) -> dict:
     """Kernel K3 against its plain version, the syscall path, the
-    proof-of-work search, and the interpreter's throughput."""
+    proof-of-work search, one lane's clocks, and the interpreter's
+    throughput in both layouts."""
     import numpy as np
     import torch
 
-    from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.interp import (InterpConfig, TpuInterpreter,
-                                       interp_chunk, interp_chunk_plain)
+                                       interp_run, interp_run_plain)
+    from zkir_tpu_torch.interp import columnar
     from zkir_tpu_torch.ops import poseidon2 as p2
     from zkir_tpu_torch.prover import trace_to_matrix
     from zkir_tpu_torch.prover.benchtrace import exact_trace_program
     from zkir_tpu_torch.prover.challenger import Challenger
     from zkir_tpu_torch.spec import Program
+    from zkir_tpu_torch.tools import interp_bench
     from zkir_tpu_torch.tools.fuzz_programs import generate_program
 
-    stats = {}
+    stats = {"floor": interp_floor()}
     small = dict(low_bytes=1 << 15, stack_bytes=1 << 12, collect_trace=True)
 
     # (a) the fuzz corpus's 64 programs, two lanes with different tapes.
@@ -599,43 +714,59 @@ def phase_interp(results) -> dict:
         program, inputs = generate_program(seed)
         interp = TpuInterpreter(program, InterpConfig(
             lanes=2, chunk=64, **small), device="cuda")
-        cycles += interp_both(f"interp_chunk fuzz seed {seed}", interp,
-                              [inputs, [x ^ 0x5A5A for x in inputs[::-1]]])
-    log(f"interp_chunk: exact on 64 fuzz programs x 2 lanes ({cycles} "
-        f"cycles, {time.perf_counter() - t0:.1f} s)")
+        cycles += interp_both(f"interp fuzz seed {seed}", interp,
+                              [inputs, [x ^ 0x5A5A for x in inputs[::-1]]])[0]
+    log(f"interp_chunk, interp_run: exact on 64 fuzz programs x 2 lanes "
+        f"({cycles} cycles, {time.perf_counter() - t0:.1f} s)")
 
-    # (b) memory, I/O and a Poseidon2 syscall on 1,024 lanes.
+    # (b) memory, I/O and a Poseidon2 syscall on 1,024 lanes, through the
+    # entry point a user calls: the path that owns p2_permute (the
+    # Poseidon2 syscalls of all lanes, batched).
     lanes = 1024
     rng = np.random.default_rng(SEED)
     tapes = [[int(v) for v in rng.integers(0, 1 << 40, size=9)]
              for _ in range(lanes)]
     interp = TpuInterpreter(lanes_program(), InterpConfig(
         lanes=lanes, chunk=128, **small), device="cuda")
-    cycles = interp_both("interp_chunk 1,024 lanes", interp, tapes)
-    log(f"interp_chunk: exact on the memory/I/O/syscall program, {lanes} "
-        f"lanes ({cycles} cycles)")
-    # The same program through the entry point a user calls: the path
-    # that owns p2_permute (the Poseidon2 syscalls of all lanes, batched).
-    _kernels.reset_launches()
-    result = interp.run(tapes)
-    stats["syscall_path_launches"] = dict(_kernels.launches)
-    if not _kernels.launches["p2_permute"] \
-            or not _kernels.launches["interp_chunk"]:
-        raise AssertionError("the syscall path launched "
-                             f"{stats['syscall_path_launches']}")
+    cycles, result, launches = interp_both("interp 1,024 lanes", interp,
+                                           tapes)
+    stats["syscall_path_launches"] = launches
+    if not launches.get("p2_permute") or not launches.get("interp_run"):
+        raise AssertionError(f"the syscall path launched {launches}")
     if set(result["halted"].tolist()) != {2} \
             or any(len(o) != 9 for o in result["outputs"]) \
             or len({int(o[8]) for o in result["outputs"]}) < lanes // 2:
         raise AssertionError("the 1,024-lane run did not exit with nine "
                              "outputs a lane")
-    log(f"syscall path: {stats['syscall_path_launches']}")
+    log(f"interp_chunk, interp_run: exact on the memory/I/O/syscall "
+        f"program, {lanes} lanes ({cycles} cycles); syscall path: {launches}")
 
-    # (c) golden E's program: SHA-256 pause and resume.
+    # (c) lanes that pause at different chunks and run ahead of each
+    # other, to their end and cut by a limit that is not a multiple of the
+    # chunk; few lanes (a warp each) and many (a thread each: more than
+    # WARP_LANES_TRACED).
+    for lanes, chunk, limit in ((4, 16, None), (4, 16, 150),
+                                (2048, 16, None), (2048, 16, 150)):
+        tapes = [[int(v) for v in rng.integers(0, 1 << 40, size=5)]
+                 for _ in range(lanes)]
+        interp = TpuInterpreter(staggered_program(), InterpConfig(
+            lanes=lanes, chunk=chunk, **small), device="cuda")
+        cycles, result, launches = interp_both(
+            f"interp staggered {lanes} lanes, max_cycles {limit}", interp,
+            tapes, max_cycles=limit, must_halt=limit is None)
+        halts = sorted(set(result["halted"].tolist()))
+        if halts != ([2] if limit is None else [2, 3]):
+            raise AssertionError(f"staggered run halted {halts}")
+        log(f"interp_chunk, interp_run: exact on the staggered program, "
+            f"{lanes} lanes, max_cycles {limit} ({cycles} cycles, halts "
+            f"{halts}, {launches})")
+
+    # (d) golden E's program: SHA-256 pause and resume.
     program = Program.from_bytes(
         (FIXTURES / "golden_e.program.zkir").read_bytes())
     cfg = InterpConfig(lanes=1, chunk=16, collect_trace=True)
-    interp_both("interp_chunk golden e",
-                TpuInterpreter(program, cfg, device="cuda"), [[]])
+    interp_both("interp golden e", TpuInterpreter(program, cfg,
+                                                  device="cuda"), [[]])
     matrix = trace_to_matrix(
         TpuInterpreter(program, cfg, device="cuda").run([[]])["trace"],
         program=program)
@@ -643,26 +774,101 @@ def phase_interp(results) -> dict:
         if not np.array_equal(matrix, z["matrix"]):
             raise AssertionError("golden e: the card-made matrix differs "
                                  "from the stored one")
-    log("interp_chunk: exact on golden e's program; matrix equal to the "
-        "stored one")
+    log("interp_chunk, interp_run: exact on golden e's program; matrix "
+        "equal to the stored one")
 
-    # The main path's shape, timed: one lane, 1,024 cycles, with a trace.
+    # The main path's shape, timed: one lane with a trace, 1,024 cycles
+    # (interp_run over a one-chunk segment), and the whole 2^16-cycle run
+    # in one interp_run launch.
     interp = TpuInterpreter(exact_trace_program(16), InterpConfig(
         lanes=1, chunk=1024, collect_trace=True), device="cuda")
     state0 = interp.init_state([[]])
     state_bytes = sum(t.numel() * t.element_size() for t in state0)
-    compare("interp_chunk",
-            lambda: interp_flat(*interp_chunk(
-                interp.code, interp.n_words, state0, interp.config)),
-            lambda: interp_flat(*interp_chunk_plain(
-                interp.code, interp.n_words, state0, interp.config)),
-            20, results, plain_iters=1, bounds=interp_bound(
-                2 * state_bytes + TRACE_ROW_BYTES * 1024, 1024, 1))
+    floor = stats["floor"]["warp" if columnar.warp_layout(1, True)
+                           else "thread"]
+
+    def fresh(chunks):
+        """A copy of the initial state, each lane at chunk 0, and a zeroed
+        trace of ``chunks`` chunks."""
+        state = state0._replace(**{k: getattr(state0, k).clone()
+                                   for k in columnar._MUTABLE})
+        at = torch.zeros(1, dtype=torch.int32, device="cuda")
+        return state, at, columnar._new_trace(1024 * chunks, 1, "cuda")
+
+    def segment(run, chunks=1, kernel=True):
+        state, at, trace = fresh(chunks)
+        kw = {"decoded": interp.decoded} if kernel else {}
+        state = run(interp.code, interp.n_words, state, at, 0, chunks,
+                    interp.config, trace, **kw)
+        return interp_flat(state, trace, valid_only=False) + (at,)
+
+    compare("interp_run", lambda: segment(interp_run),
+            lambda: segment(interp_run_plain, kernel=False), 20, results,
+            plain_iters=1, bounds=interp_bound(
+                2 * state_bytes + TRACE_ROW_BYTES * 1024, 1024, 1,
+                floor["bound_instr"]))
+    rows = 1 << 16
+    chunks = rows // 1024
+    # The interp_run call alone (state and trace made outside the timed
+    # span), and with the set-up and interp_flat's conversions around it.
+    ms = 0.0
+    for it in range(6):
+        state, at, trace = fresh(chunks)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        interp_run(interp.code, interp.n_words, state, at, 0, chunks,
+                   interp.config, trace, decoded=interp.decoded)
+        end.record()
+        torch.cuda.synchronize()
+        if int(state.cycles[0]) != rows:
+            raise AssertionError(f"the 2^16 run ran {int(state.cycles[0])} "
+                                 "cycles")
+        if it:                  # the first launch is the warm-up
+            ms += start.elapsed_time(end) / 5
+    ms_setup = cuda_ms(lambda: segment(interp_run, chunks=chunks), 5)
+    b = interp_bound(2 * state_bytes + TRACE_ROW_BYTES * rows, rows, 1,
+                     floor["bound_instr"])
+    results["interp_run"].update(
+        shape="1 lane x 1,024 cycles, a one-chunk segment", ms_2e16=ms,
+        ms_2e16_with_setup=ms_setup, bound_ms_2e16=b["bound_ms"],
+        cycles_2e16=rows)
+    log(f"interp_run: the 2^16-cycle run, the launch alone {ms:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({100 * b['bound_ms'] / ms:.1f}%); with the state's copy, the "
+        f"trace's allocation and the int64 views {ms_setup:.4f} ms")
+
+    # One lane's clocks a cycle, by phase (a stamped build of the kernel),
+    # and the other layout at the same shape.
+    source = ROOT / "zkir_tpu_torch" / "csrc" / "interp.cu"
+    clk = interp_bench.clocks(source)
+    other = interp_bench.clocks(source,
+                                warp=not columnar.warp_layout(1, True),
+                                stamps=False)
+    if other["ms"] <= clk["ms"]:
+        raise AssertionError(f"warp_layout picks the slower layout for one "
+                             f"lane: {clk}, {other}")
+    per_1024 = clk["ms"] * 1024 / clk["cycles"]
+    share = results["interp_run"]["bound_ms"] / per_1024
+    stamped_ms = clk["clocks_per_cycle"] * clk["cycles"] / SM_CLOCK_HZ * 1e3
+    if not 0.5 < stamped_ms / clk["ms_stamped"] < 1.5 \
+            or clk["ms"] <= results["interp_run"]["bound_ms"]:
+        raise AssertionError(f"one lane's clocks do not add up: {clk}")
+    stats["one_lane_clocks"] = {**clk, "ms_per_1024": per_1024,
+                                "share_of_bound": share,
+                                "other_layout": other}
+    log(f"one lane ({clk['layout']} layout): {per_1024:.4f} ms per 1,024 "
+        f"cycles as a launch alone ({other['layout']} layout "
+        f"{other['ms']:.4f} ms), {100 * share:.1f}% of the bound; "
+        f"{clk['clocks_per_cycle']:.1f} SM clocks a cycle stamped: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in clk["phases"].items()))
 
     # Throughput on the reference benchmark's loop program, no trace:
-    # lanes x chunk cycles per launch, three chunks by CUDA events.
+    # lanes x chunk cycles per launch, three chunks by CUDA events, through
+    # chunk_fn (the layout the wrapper picks).  Then both layouts, the
+    # kernel alone, without a trace and with one.
     for lanes in (65536, 8192):
-        interp = TpuInterpreter(bench_loop_program(), InterpConfig(
+        interp = TpuInterpreter(interp_bench.loop_program(), InterpConfig(
             lanes=lanes, chunk=512, low_bytes=1 << 13,
             stack_bytes=1 << 12), device="cuda")
         state = interp.init_state([[1]] * lanes)
@@ -678,12 +884,37 @@ def phase_interp(results) -> dict:
         if done != 512 * 13 or bool((holder[0].cycles != done).any()):
             raise AssertionError(f"loop program ran {done} cycles a lane")
         rate = 3 * 512 * lanes / (ms / 1e3)
-        results[f"interp_chunk loop program [{lanes} lanes x 512]"] = {
-            "ms": ms / 3, "cycles_per_s": rate,
-            **interp_bound(2 * lanes * 16 * 12, 512, lanes)}
+        layout = "warp" if columnar.warp_layout(lanes, False) else "thread"
+        results[f"chunk_fn loop program [{lanes} lanes x 512]"] = {
+            "ms": ms / 3, "cycles_per_s": rate, "layout": layout,
+            **interp_bound(2 * lanes * 16 * 12, 512, lanes,
+                           stats["floor"][layout]["bound_instr"])}
         stats[f"interp_cycles_per_s_{lanes}_lanes"] = rate
-        log(f"interp_chunk: {lanes} lanes x 512 cycles in {ms / 3:.3f} ms "
-            f"a launch, {rate:.4g} cycles/s")
+        log(f"chunk_fn: {lanes} lanes x 512 cycles in {ms / 3:.3f} ms "
+            f"a launch, {rate:.4g} cycles/s ({layout} layout)")
+    sweep = [interp_bench.loop_rate(lanes, warp)
+             for lanes in (1, 8, 64, 256, 1024, 2048, 8192, 65536)
+             for warp in (True, False)]
+    traced = [interp_bench.loop_rate(lanes, warp, trace=True)
+              for lanes in (1, 2, 8, 64, 256, 512, 1024)
+              for warp in (True, False)]
+    stats["layouts"] = sweep
+    stats["layouts_with_trace"] = traced
+    for what, rates in (("", sweep), (" with a trace", traced)):
+        log(f"loop program{what}, cycles/s by lanes, warp / thread layout: "
+            + "; ".join(f"{a['lanes']}: {a['cycles_per_s']:.4g} / "
+                        f"{b['cycles_per_s']:.4g}"
+                        for a, b in zip(rates[::2], rates[1::2])))
+    for a, b in zip(traced[::2], traced[1::2]):
+        picked, other = (a, b) if columnar.warp_layout(a["lanes"], True) \
+            else (b, a)
+        if picked["cycles_per_s"] < other["cycles_per_s"]:
+            raise AssertionError(f"warp_layout picks the slower layout with "
+                                 f"a trace: {picked}, {other}")
+    warp, thread = sweep[-2:]
+    if warp["cycles_per_s"] >= thread["cycles_per_s"]:
+        raise AssertionError(f"warp_layout picks the slower layout at "
+                             f"65,536 lanes: {warp}, {thread}")
 
     # p2_grind against grind_plain: equal nonces, and check_pow accepts.
     gen = torch.Generator(device="cuda")
@@ -748,10 +979,30 @@ def phase_cli() -> dict:
         out, _, _ = run_cli(tmp, "disasm", "fib.zkir")
         if "ecall" not in out:
             raise AssertionError(f"disasm: {out}")
-        out, _, stats["cli_run_s"] = run_cli(tmp, "run", "fib.zkir",
-                                             "--input", "10")
-        if out.strip() != "halt=2 cycles=62 exit=0 outputs=[55]":
-            raise AssertionError(f"run: {out}")
+        # run: the gpu engine (the default on the card) and the native
+        # one; at a cycle limit the native engine prints the reference's
+        # line and exits 1, the gpu engine stops between chunks (the
+        # reference's tpu engine does the same); the host engine with an
+        # explicit --device cuda is refused.
+        for engine in ("native", "gpu"):
+            out, _, stats[f"cli_run_{engine}_s"] = run_cli(
+                tmp, "run", "fib.zkir", "--input", "10", "--engine", engine)
+            if out.strip() != "halt=2 cycles=62 exit=0 outputs=[55]":
+                raise AssertionError(f"run --engine {engine}: {out}")
+        for engine, line, code in (
+                ("native", "halt=3 cycles=5 exit=0 outputs=[]", 1),
+                ("gpu", "halt=2 cycles=62 exit=0 outputs=[55]", 0),
+                (None, "halt=2 cycles=62 exit=0 outputs=[55]", 0)):
+            flags = ("--engine", engine) if engine else ()
+            out, _, _ = run_cli(tmp, "run", "fib.zkir", "--input", "10",
+                                "--max-cycles", "5", *flags, expect=code)
+            if out.strip() != line:
+                raise AssertionError(f"run --max-cycles 5 --engine {engine}: "
+                                     f"{out}")
+        _, err, _ = run_cli(tmp, "--device", "cuda", "run", "fib.zkir",
+                            "--engine", "native", expect=1)
+        if "runs on the host" not in err:
+            raise AssertionError(f"--device cuda run --engine native: {err}")
         out, _, stats["cli_prove_bind_s"] = run_cli(
             tmp, "prove", fib, "--input", "10", "--bind", "-o", "d.json")
         if out.strip() != "proved 62 trace rows (62 cycles) -> d.json":
@@ -771,7 +1022,9 @@ def phase_cli() -> dict:
         _, _, stats["cli_prove_s"] = run_cli(tmp, "prove", "fib.zkir",
                                              "--input", "10", "-o", "a.json")
         same(tmp / "a.json", "golden_a")
-        log("CLI: asm, disasm, run, prove (goldens D and A reproduced), "
+        log("CLI: asm, disasm, run (native and gpu engines, with and "
+            "without a cycle limit, gpu the default, native refused with "
+            "--device cuda), prove (goldens D and A reproduced), "
             "verify VALID / INVALID with another program")
 
         # A checkpointed prove, resumed after its last stage was lost.
@@ -1087,8 +1340,9 @@ def phase_full(results, quotient_stats) -> dict:
     _kernels.reset_launches()
     trace, matrix = interpret()
     first = dict(seconds)
-    if _kernels.launches["interp_chunk"] != rows // 1024:
-        raise AssertionError(f"the 2^16 trace took {_kernels.launches}")
+    launched = {k: v for k, v in _kernels.launches.items() if v}
+    if launched != {"interp_run": 1}:
+        raise AssertionError(f"the 2^16 trace took {launched}")
     valid = ref_trace["valid"]
     if set(trace) != set(ref_trace):
         raise AssertionError(f"trace keys {sorted(trace)}")
@@ -1102,10 +1356,22 @@ def phase_full(results, quotient_stats) -> dict:
             or not np.array_equal(matrix, ref_matrix):
         raise AssertionError("the card-made trace matrix differs from the "
                              "reference's")
+    # The CLI's configuration (chunk 256, prove's default max_cycles):
+    # one launch too, and the same matrix.
+    _kernels.reset_launches()
+    cli_trace = TpuInterpreter(program, InterpConfig(
+        lanes=1, chunk=256, collect_trace=True), device="cuda").run(
+        [[]], max_cycles=100_000)["trace"]
+    launched = {k: v for k, v in _kernels.launches.items() if v}
+    if launched != {"interp_run": 1} \
+            or not np.array_equal(trace_to_matrix(cli_trace), ref_matrix):
+        raise AssertionError(f"the CLI's configuration took {launched} or "
+                             "made another matrix")
     interpret()
     warm = dict(seconds)
     log(f"interpreter: 2^16-cycle trace on the card equal to the "
-        f"reference's ({rows // 1024} launches; TpuInterpreter.run first "
+        f"reference's (one interp_run launch, also with the CLI's 256-cycle "
+        f"chunks; TpuInterpreter.run first "
         f"{first['run_s']:.3f} s, warm {warm['run_s']:.3f} s; "
         f"trace_to_matrix {warm['matrix_s']:.3f} s); matrix "
         f"{matrix.shape}, program of {len(program.code)} instructions")

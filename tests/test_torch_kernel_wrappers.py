@@ -238,8 +238,19 @@ def test_interp_descriptor_fills_the_kernels_slots():
     without = list(C._descriptor(interp.code, interp.n_words, state,
                                  interp.config, None))
     assert len(without) == len(desc)
-    assert without[slots.index("D_COLLECT"):] == [0] * (
-        1 + len(C._TRACE_COLUMNS))
+    assert without[slots.index("D_COLLECT"):slots.index("T_RC_VALUE") + 1] \
+        == [0] * (1 + len(C._TRACE_COLUMNS))
+    # One chunk of every lane from chunk 0, a warp per lane for 3 lanes.
+    assert (at["D_DECODED"], at["D_LANE_CHUNK"]) == (0, 0)
+    assert (at["D_SEG_LO"], at["D_SEG_HI"], at["D_WARP"]) == (0, 1, 1)
+    lane_chunk = torch.zeros(3, dtype=torch.int32)
+    run = dict(zip(slots, C._descriptor(
+        interp.code, interp.n_words, state, interp.config, trace,
+        decoded=interp.decoded, lane_chunk=lane_chunk, seg=(4, 12),
+        warp=False)))
+    assert run["D_DECODED"] == interp.decoded.data_ptr()
+    assert run["D_LANE_CHUNK"] == lane_chunk.data_ptr()
+    assert (run["D_SEG_LO"], run["D_SEG_HI"], run["D_WARP"]) == (4, 12, 0)
 
 
 def test_interp_state_is_checked_not_converted():

@@ -53,7 +53,7 @@ _SIGNATURES = {
     # state, bits, start nonce, nonce limit, result
     "p2_grind": (_P, _I, _N, _N, _P),
     # host descriptor (csrc/interp.cu's enum)
-    "interp_chunk": (_P,),
+    "interp_run": (_P,),
 }
 
 # One count per entry point; a module that builds kernels of its own

@@ -4,20 +4,25 @@ Counterpart of ``zkir_tpu/cli.py``, with the reference's arguments and
 printed lines.  Everything that computes runs on ``--device`` (default
 ``cuda``); without a GPU and without ``--device cpu``, ``run``, ``prove``
 and ``verify`` fail with a message instead of running quietly on the CPU
-(``asm`` and ``disasm`` are host code).
+(``asm``, ``disasm`` and ``run --engine native`` are host code).
 
 Usage:
     python -m zkir_tpu_torch asm program.zkasm -o program.zkir
     python -m zkir_tpu_torch disasm program.zkir
     python -m zkir_tpu_torch run program.zkir --input 5
+    python -m zkir_tpu_torch run program.zkir --input 5 --engine native
     python -m zkir_tpu_torch prove program.zkir --input 5 --bind -o proof.json
     python -m zkir_tpu_torch verify proof.json --binary program.zkir
     python -m zkir_tpu_torch --device cpu prove program.zkasm --input 5
 
-Not ported: ``run``'s oracle and native engines (the one engine is
-``gpu``), ``prove --streaming`` and ``--mesh`` (they raise
-``NotImplementedError`` naming their ROADMAP items), and ``warm`` (there
-is no compile cache to fill).
+``run --engine`` is ``gpu`` (the batched interpreter on ``--device``, the
+counterpart of the reference's ``tpu``; the default on the card) or
+``native`` (the reference's default: the C++ core on the host, which stops
+at ``--max-cycles`` and exits 1 on any halt but EBREAK and EXIT; the
+default with ``--device cpu``, and refused with an explicit ``--device
+cuda``).  Not ported: the ``oracle`` engine, ``prove --streaming`` and
+``--mesh`` (they raise ``NotImplementedError`` naming their ROADMAP
+items), and ``warm`` (there is no compile cache to fill).
 """
 
 from __future__ import annotations
@@ -55,10 +60,22 @@ def cmd_disasm(args) -> int:
 
 
 def cmd_run(args) -> int:
-    from .interp import InterpConfig, TpuInterpreter
-
     program = _load_program(args.binary)
     inputs = [int(x, 0) for x in args.input]
+
+    if args.engine == "native":
+        from .runtime.native_vm import HALT_EBREAK, HALT_EXIT, run_native
+
+        result = run_native(program, inputs, max_cycles=args.max_cycles)
+        print(f"halt={result.halt} cycles={result.cycles} "
+              f"exit={result.exit_code} outputs={result.outputs}")
+        return 0 if result.halt in (HALT_EBREAK, HALT_EXIT) else 1
+    if args.engine == "oracle":
+        raise NotImplementedError(
+            "run --engine oracle is not ported to zkir_tpu_torch yet "
+            "(ROADMAP Queue 1: run --engine oracle, the Python oracle VM)")
+    from .interp import InterpConfig, TpuInterpreter
+
     interp = TpuInterpreter(program, InterpConfig(lanes=1, chunk=256),
                             device=args.device)
     result = interp.run([inputs], max_cycles=args.max_cycles)
@@ -77,11 +94,11 @@ def cmd_prove(args) -> int:
     if args.streaming:
         raise NotImplementedError(
             "prove --streaming is not ported to zkir_tpu_torch yet "
-            "(ROADMAP Queue 1 item 6: the streaming prover)")
+            "(ROADMAP Queue 1: the streaming prover)")
     if args.mesh:
         raise NotImplementedError(
             "prove --mesh is not ported to zkir_tpu_torch yet "
-            "(ROADMAP Queue 1 item 7: multi-GPU)")
+            "(ROADMAP Queue 1: multi-GPU)")
     device = args.device
     program = _load_program(args.binary)
     inputs = [int(x, 0) for x in args.input]
@@ -133,9 +150,10 @@ def _require_device(device: str) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="zkir_tpu_torch")
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+    parser.add_argument("--device", choices=["cuda", "cpu"],
                         help="where the interpreter, prover and verifier "
-                             "run (cpu takes the kernels' plain versions)")
+                             "run (default cuda; cpu takes the kernels' "
+                             "plain versions)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("asm", help="assemble .zkasm to a .zkir binary")
@@ -151,8 +169,11 @@ def main(argv=None) -> int:
     p.add_argument("binary")
     p.add_argument("--input", action="append", default=[],
                    help="input tape value (repeatable)")
-    p.add_argument("--engine", choices=["gpu"], default="gpu",
-                   help="the batched interpreter (on --device)")
+    p.add_argument("--engine", choices=["oracle", "native", "gpu"],
+                   help="gpu: the batched interpreter on --device (the "
+                        "default); native: the C++ core on the host, no "
+                        "GPU (the default with --device cpu); oracle: not "
+                        "ported yet")
     p.add_argument("--max-cycles", type=int, default=1_000_000)
     p.set_defaults(fn=cmd_run)
 
@@ -184,7 +205,17 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_verify)
 
     args = parser.parse_args(argv)
-    if args.fn in (cmd_run, cmd_prove, cmd_verify):   # the rest is host code
+    if args.fn is cmd_run:
+        if args.engine is None:
+            args.engine = "native" if args.device == "cpu" else "gpu"
+        if args.engine == "native" and args.device == "cuda":
+            raise SystemExit(
+                "error: run --engine native runs on the host; drop "
+                "--device cuda, or pass --engine gpu to run on the GPU")
+    args.device = args.device or "cuda"
+    # asm, disasm and the host engines of run need no device.
+    if args.fn in (cmd_prove, cmd_verify) or (
+            args.fn is cmd_run and args.engine == "gpu"):
         _require_device(args.device)
     return args.fn(args)
 

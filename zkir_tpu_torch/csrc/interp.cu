@@ -1,42 +1,63 @@
-// K3: the batched ZK-IR interpreter, `chunk` machine cycles of every lane
-// in one launch.
+// K3: the batched ZK-IR interpreter.  `interp_run` runs every lane until it
+// halts, pauses for a crypto syscall or reaches the end of the launch's
+// segment of chunks (one chunk for columnar.py::interp_chunk).
 //
 // Replaces the jitted `lax.scan` behind `_chunk_fn_for`
 // (zkir_tpu/interp/columnar.py, body `step`), which is XLA code shaped by
 // the TPU: 64-bit words as pairs of 32-bit limbs (interp/pairs.py), a
 // one-hot register file, a one-hot matmul instruction fetch, every opcode
 // family computed each cycle and selected by masks, and one compiled step
-// per set of opcode families.  Hopper needs none of that.  Here one thread
-// owns one lane and loops over the cycles: the word is fetched from the
-// read-only code buffer and decoded inline, a `switch` on the opcode runs
-// only that instruction, 64-bit values are `unsigned long long`, MULH's
+// per set of opcode families.  Hopper needs none of that.  Here each lane
+// is a sequential machine that loops over its cycles: the instruction's
+// fields come from a table decoded once per program on the device (one
+// 16-byte entry per code word: an instruction class, the register fields,
+// the immediates), a `switch` on the class runs only that instruction and
+// sends the rarer ones (MULH, the divider, loads and stores, syscalls) to
+// a `switch` on the opcode, 64-bit values are `unsigned long long`, MULH's
 // 128-bit product is `__umul64hi`, the divider is `/` and `%` on unsigned
 // values (signs handled around it, because INT64_MIN / -1 is undefined in
-// C), and loads and stores touch only the bytes inside their width.  One
-// kernel serves every program.
+// C), and a load or store is one aligned access of its width.  One kernel
+// serves every program.
 //
-// The 16 registers and their bounds live in a [16][blockDim] shared-memory
-// tile (a register index is data, so a per-thread array would go to local
-// memory; lane-minor rows keep the accesses of a warp in distinct banks).
-// The machine state is read once at entry and written once at exit.  With
-// a trace, every cycle writes its row into the [chunk, lanes, ...] outputs
-// the wrapper allocated (zeroed: a lane that is halted, or halts with an
-// error, leaves `valid` 0 in its remaining rows).
+// Chunks.  `chunk` cycles stay the unit of the trace's layout and of the
+// cycle limit, as in the reference's host loop: row (k * chunk + t) of the
+// run's trace is cycle t of a lane's chunk k.  Each lane keeps its own
+// chunk index (`lane_chunk`): a lane that halts or pauses ends its chunk
+// at once (the rest of that chunk's rows stay invalid) and goes on, after
+// the host has serviced a pause, at its next chunk.  A launch covers the
+// chunks [seg_lo, seg_hi) and writes their rows into the segment's trace
+// buffers (zeroed by the wrapper: a row that is not written keeps `valid`
+// 0).  No lane waits for another, so the grid needs no barrier.
 //
-// Bound on the H100: with a trace, the 244 bytes a row writes; without
-// one, the instructions a cycle executes (a dependent chain per lane).
-// Per-lane memory rows make the lanes' accesses uncoalesced and a single
-// lane uses a single thread of the card.
+// Two layouts of one kernel text (the template parameter WARP), so that a
+// fix to an opcode reaches both:
+// - a thread per lane, for many lanes: the 16 registers and their bounds
+//   live in a [16][THREADS] shared tile (a register index is data, so a
+//   per-thread array would go to local memory; lane-minor rows keep the
+//   accesses of a warp in distinct banks);
+// - a warp per lane, for few lanes (the one-lane main path): thread j holds
+//   register j & 15 and its bound in registers (threads 16-31 mirror 0-15),
+//   an operand is one `__shfl_sync`, rd is written by its owners, every
+//   thread computes the cycle's scalar values alike, the trace row's
+//   registers and bounds are one coalesced store each, and its scalars
+//   wait in shared memory until 32 rows are stored at once.
 //
-// Written in CUDA C++ rather than Triton: a sequential machine per thread
-// with data-dependent control flow, byte-granular gathers and scatters and
-// 64- and 128-bit integer arithmetic is not a block of tensors.
+// Bound on the H100: the instructions of a cycle (a dependent chain per
+// lane); with a trace, also the 244 bytes a row writes.  A single lane
+// uses a single warp of the card, so every instruction of a cycle waits
+// for the one before: fewer instructions a cycle is what makes it faster
+// (zkir_tpu_torch/tools/interp_bench.py splits its clocks by phase).
+//
+// Written in CUDA C++ rather than Triton: a sequential machine per lane
+// with data-dependent control flow, gathers and scatters of 1 to 8 bytes
+// and 64- and 128-bit integer arithmetic is not a block of tensors.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 typedef unsigned long long u64;
 
 #define THREADS 128
+#define FULL_MASK 0xFFFFFFFFu
 #define M40 0xFFFFFFFFFFull
 #define CODE_BASE 0x1000ull
 #define STACK_TOP 0xFFFFFFFFFFull
@@ -47,8 +68,29 @@ typedef unsigned long long u64;
 #define HALT_ERROR 4
 #define PAUSE_CRYPTO 5
 
+// clock64() stamps between the phases of a cycle, summed per phase over
+// the run; on only in the build of zkir_tpu_torch/tools/interp_bench.py.
+#ifdef INTERP_CLOCKS
+__device__ unsigned long long zk_clocks[8];
+#define CLK_BEGIN unsigned long long clk_t = clock64(), clk_acc[5] = {0, 0, 0, 0, 0};
+#define CLK(k) { const unsigned long long n_ = clock64(); clk_acc[k] += n_ - clk_t; clk_t = n_; }
+#define CLK_END(who) if (who) for (int k_ = 0; k_ < 5; ++k_) atomicAdd(&zk_clocks[k_], clk_acc[k_]);
+extern "C" int zk_clocks_take(unsigned long long* out) {
+    cudaMemcpyFromSymbol(out, zk_clocks, sizeof(zk_clocks));
+    unsigned long long zero[8] = {0};
+    return (int)cudaMemcpyToSymbol(zk_clocks, zero, sizeof(zk_clocks));
+}
+#else
+#define CLK_BEGIN
+#define CLK(k)
+#define CLK_END(who)
+#endif
+
 // The descriptor's slots (64-bit words; pointers as integers), filled by
-// zkir_tpu_torch/interp/columnar.py::_descriptor in this order.
+// zkir_tpu_torch/interp/columnar.py::_descriptor in this order.  The last
+// five: the decoded program (uint4 [n_words], columnar.py::decode_table);
+// each lane's next chunk (int32 [lanes], or 0: every lane at seg_lo); the
+// launch's chunks [seg_lo, seg_hi); 1 for a warp per lane.
 enum {
     D_CODE, D_N_WORDS, D_LANES, D_CHUNK,
     D_PC, D_REGS, D_BOUND, D_HALTED, D_EXIT, D_CYCLES,
@@ -59,7 +101,29 @@ enum {
     T_VALID, T_CYCLE, T_PC, T_WORD, T_REGS, T_BOUNDS,
     T_MEM_VALID, T_MEM_ADDR, T_MEM_VALUE, T_MEM_WIDTH, T_MEM_IS_WRITE,
     T_RC_VALID, T_RC_VALUE,
+    D_DECODED, D_LANE_CHUNK, D_SEG_LO, D_SEG_HI, D_WARP,
     D_COUNT
+};
+
+// A decoded word (columnar.py::decode_table): x the packed fields below,
+// y imm17 sign-extended, z JAL's imm21 sign-extended or an immediate
+// shift's amount, w the word.
+#define F_CLASS(x) ((x) & 0xF)
+#define F_IMM(x) (((x) >> 4) & 1)       // the second operand is the immediate
+#define F_KIND(x) (((x) >> 5) & 3)      // compare: 0 unsigned <, 1 signed <, 2 ==
+#define F_NEG(x) (((x) >> 7) & 1)       // negate it (also CMOVZ, JALR)
+#define F_RD(x) (((x) >> 8) & 0xF)      // 0 for S- and B-type words
+#define F_RS1(x) (((x) >> 12) & 0xF)
+#define F_RS2(x) (((x) >> 16) & 0xF)
+#define F_IMM_BITS(x) (((x) >> 20) & 0x7F)
+#define F_WIDTH(x) (((x) >> 27) & 0xF)  // 0 outside loads and stores
+
+// Instruction classes, columnar.py::_CLASSES.  C_SLOW (MULH, the divider,
+// loads, stores, ECALL, EBREAK, and words that are no instruction) goes on
+// to a `switch` on the opcode.
+enum {
+    C_ADD, C_SUB, C_MUL, C_AND, C_OR, C_XOR, C_SLL, C_SRL, C_SRA, C_CMP,
+    C_CMOV, C_JUMP, C_BRANCH, C_SLOW
 };
 
 struct Interp {
@@ -74,22 +138,90 @@ __device__ __forceinline__ T* ptr(const Interp& a, int slot) {
 __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
 __device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
 
+__device__ __forceinline__ u64 shfl64(u64 v, int src) {
+    const unsigned lo = __shfl_sync(FULL_MASK, (unsigned)v, src);
+    const unsigned hi = __shfl_sync(FULL_MASK, (unsigned)(v >> 32), src);
+    return ((u64)hi << 32) | lo;
+}
+
+// `width` bytes at p, little-endian: one access where p is aligned to it
+// (the windows' offsets are multiples of 8, and the address is checked to
+// be aligned), else byte by byte.
+__device__ __forceinline__ u64 load_bytes(const uint8_t* p, int width) {
+    if (((uintptr_t)p & (width - 1)) == 0) {
+        switch (width) {
+        case 1: return *p;
+        case 2: return *reinterpret_cast<const uint16_t*>(p);
+        case 4: return *reinterpret_cast<const uint32_t*>(p);
+        default: return *reinterpret_cast<const u64*>(p);
+        }
+    }
+    u64 v = 0;
+    for (int k = 0; k < width; ++k) v |= (u64)p[k] << (8 * k);
+    return v;
+}
+
+__device__ __forceinline__ void store_bytes(uint8_t* p, int width, u64 v) {
+    if (((uintptr_t)p & (width - 1)) == 0) {
+        switch (width) {
+        case 1: *p = (uint8_t)v; return;
+        case 2: *reinterpret_cast<uint16_t*>(p) = (uint16_t)v; return;
+        case 4: *reinterpret_cast<uint32_t*>(p) = (uint32_t)v; return;
+        default: *reinterpret_cast<u64*>(p) = v; return;
+        }
+    }
+    for (int k = 0; k < width; ++k) p[k] = (uint8_t)(v >> (8 * k));
+}
+
+// A trace row's scalar columns at element e (row x lanes + lane): the
+// packed word carries word | width << 32 | mem_valid << 40 |
+// mem_is_write << 41 | rc_valid << 42.
+__device__ __forceinline__ void put_row(const Interp& a, int e, u64 cycle,
+                                        u64 pc, u64 addr, u64 value,
+                                        u64 rc_value, u64 packed) {
+    ptr<uint8_t>(a, T_VALID)[e] = 1;
+    ptr<u64>(a, T_CYCLE)[e] = cycle;
+    ptr<u64>(a, T_PC)[e] = pc;
+    ptr<uint32_t>(a, T_WORD)[e] = (uint32_t)packed;
+    ptr<uint8_t>(a, T_MEM_VALID)[e] = (packed >> 40) & 1;
+    ptr<u64>(a, T_MEM_ADDR)[e] = addr;
+    ptr<u64>(a, T_MEM_VALUE)[e] = value;
+    ptr<int>(a, T_MEM_WIDTH)[e] = (int)((packed >> 32) & 0xFF);
+    ptr<uint8_t>(a, T_MEM_IS_WRITE)[e] = (packed >> 41) & 1;
+    ptr<uint8_t>(a, T_RC_VALID)[e] = (packed >> 42) & 1;
+    ptr<u64>(a, T_RC_VALUE)[e] = rc_value;
+}
+
+template <bool WARP, bool COLLECT>
 __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
-    __shared__ u64 s_regs[16][THREADS];
-    __shared__ int s_bound[16][THREADS];
+    // The thread layout's register tile (the warp layout keeps registers
+    // in registers and leaves this unused).
+    __shared__ u64 s_regs[WARP ? 1 : 16][THREADS];
+    __shared__ int s_bound[WARP ? 1 : 16][THREADS];
+    // The warp layout's last 32 trace rows (put_row's six words), written
+    // by every thread of the warp alike and stored by thread j for row j.
+    __shared__ u64 s_rows[WARP && COLLECT ? THREADS / 32 : 1][32][6];
 
     const int tx = threadIdx.x;
-    const long long lane = (long long)blockIdx.x * THREADS + tx;
-    if (lane >= a.d[D_LANES]) return;
-    int halted = ptr<int>(a, D_HALTED)[lane];
-    if (halted != HALT_NONE) return;
-
-    const uint32_t* __restrict__ code = ptr<const uint32_t>(a, D_CODE);
-    const u64 code_end = CODE_BASE + 4ull * (u64)a.d[D_N_WORDS];
+    const int j = tx & 31;              // warp layout: the thread's register j & 15
+    const long long lane = WARP ? (long long)blockIdx.x * (THREADS / 32) + tx / 32
+                                : (long long)blockIdx.x * THREADS + tx;
     const long long lanes = a.d[D_LANES];
+    if (lane >= lanes) return;          // whole warps in the warp layout
+    int halted = ptr<int>(a, D_HALTED)[lane];
+    int* lane_chunk = ptr<int>(a, D_LANE_CHUNK);
+    const int seg_lo = (int)a.d[D_SEG_LO], seg_hi = (int)a.d[D_SEG_HI];
+    int k = lane_chunk ? lane_chunk[lane] : seg_lo;
+    if (halted != HALT_NONE || k >= seg_hi) return;
+    // Stores a lane's outputs and state once.  Data memory is stored by
+    // every thread of the warp alike, so that each thread's later loads
+    // see it.
+    const bool leader = !WARP || j == 0;
+
+    const uint4* __restrict__ decoded = ptr<const uint4>(a, D_DECODED);
+    const u64 n_words = (u64)a.d[D_N_WORDS];
     const int chunk = (int)a.d[D_CHUNK];
     const bool has_mem = a.d[D_HAS_MEM] != 0;
-    const bool collect = a.d[D_COLLECT] != 0;
     const u64 low_bytes = (u64)a.d[D_LOW_BYTES];
     const u64 stack_lo = STACK_TOP - (u64)a.d[D_STACK_BYTES] + 1;
     uint8_t* mem = ptr<uint8_t>(a, D_MEM) + lane * a.d[D_MEM_STRIDE];
@@ -101,57 +233,90 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
 
     u64* g_regs = ptr<u64>(a, D_REGS) + lane * 16;
     int* g_bound = ptr<int>(a, D_BOUND) + lane * 16;
+    u64 my_reg = 0;                     // warp layout
+    int my_bound = 0;
+    if constexpr (WARP) {
+        my_reg = g_regs[j & 15];
+        my_bound = g_bound[j & 15];
+    } else {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-        s_regs[r][tx] = g_regs[r];
-        s_bound[r][tx] = g_bound[r];
+        for (int r = 0; r < 16; ++r) {
+            s_regs[r][tx] = g_regs[r];
+            s_bound[r][tx] = g_bound[r];
+        }
     }
+    // Register r's value and bound; in the warp layout every thread of the
+    // warp calls these together (control flow depends only on the lane).
+    auto reg = [&](int r) -> u64 {
+        if constexpr (WARP) return shfl64(my_reg, r);
+        else return s_regs[r][tx];
+    };
+    auto bound = [&](int r) -> int {
+        if constexpr (WARP) return __shfl_sync(FULL_MASK, my_bound, r);
+        else return s_bound[r][tx];
+    };
+    auto set_reg = [&](int r, u64 v) {
+        if constexpr (WARP) { if ((j & 15) == r) my_reg = v; }
+        else s_regs[r][tx] = v;
+    };
+    auto set_bound = [&](int r, int b) {
+        if constexpr (WARP) { if ((j & 15) == r) my_bound = b; }
+        else s_bound[r][tx] = b;
+    };
+
     u64 pc = ptr<u64>(a, D_PC)[lane];
     u64 cycles = ptr<u64>(a, D_CYCLES)[lane];
     u64 exit_code = ptr<u64>(a, D_EXIT)[lane];
     int input_pos = ptr<int>(a, D_INPUT_POS)[lane];
     int out_pos = ptr<int>(a, D_OUT_POS)[lane];
 
-    for (int t = 0; t < chunk && halted == HALT_NONE; ++t) {
-        // ---- fetch and decode ----
-        if (pc < CODE_BASE || pc >= code_end || (pc & 3)) {
+    CLK_BEGIN
+    for (; k < seg_hi && halted == HALT_NONE; ++k) {
+      const int row0 = (k - seg_lo) * chunk;
+      // Warp layout: rows [staged_from, staged_to) of this chunk wait in
+      // s_rows, from slot 0 on.
+      int staged_from = 0, staged_to = 0;
+      auto flush = [&]() {
+          if constexpr (WARP && COLLECT) {
+              if (j < staged_to - staged_from) {
+                  const u64* slot = s_rows[tx / 32][j];
+                  put_row(a, (row0 + staged_from + j) * (int)lanes + (int)lane,
+                          slot[0], slot[1], slot[2], slot[3], slot[4], slot[5]);
+              }
+              __syncwarp();
+              staged_from = staged_to;
+          }
+      };
+      for (int t = 0; t < chunk; ++t) {
+        // ---- fetch, decode, operands ----
+        // (pc - CODE_BASE) / 4 wraps past n_words below CODE_BASE.
+        const u64 word_at = (pc - CODE_BASE) >> 2;
+        if (__builtin_expect(word_at >= n_words || (pc & 3), 0)) {
             halted = HALT_ERROR;
             break;
         }
-        const uint32_t word = code[(pc - CODE_BASE) >> 2];
-        const int op = word & 0x7F;
-        const int f_rd = (word >> 7) & 0xF;
-        const int f_rs1 = (word >> 11) & 0xF;
-        const int f_rs2 = (word >> 15) & 0xF;
-        const int imm17 = (int)(((word >> 15) & 0x1FFFF) ^ 0x10000) - 0x10000;
-        const int imm21 = (int)(((word >> 11) & 0x1FFFFF) ^ 0x100000) - 0x100000;
-        const bool is_store = op >= 0x38 && op <= 0x3B;
-        const bool is_branch = op >= 0x40 && op <= 0x45;
-        const bool is_load = op >= 0x30 && op <= 0x35;
-        // S- and B-type words carry rs1 in the rd field and rs2 in rs1's.
-        const int rs1 = (is_store || is_branch) ? f_rd : f_rs1;
-        const int rs2 = (is_store || is_branch) ? f_rs1 : f_rs2;
-        const int rd = (is_store || is_branch) ? 0 : f_rd;
-        const u64 imm = (u64)(long long)imm17;
-        const int imm_bits = imm17 < 0 ? 64 : 32 - __clz(imm17);
+        const uint4 e = decoded[word_at];
+        const int cls = F_CLASS(e.x);
+        const int rd = F_RD(e.x);
+        const u64 imm = (u64)(long long)(int)e.y;
+        const bool use_imm = F_IMM(e.x), neg = F_NEG(e.x);
 
-        const u64 a_raw = s_regs[rs1][tx];
-        const u64 b_raw = s_regs[rs2][tx];
-        const int a_bound = s_bound[rs1][tx];
-        const int b_bound = s_bound[rs2][tx];
-        const u64 a40 = a_raw & M40, b40 = b_raw & M40, imm40 = imm & M40;
+        const u64 a_raw = reg(F_RS1(e.x));
+        const u64 b_raw = reg(F_RS2(e.x));
+        const int a_bound = bound(F_RS1(e.x));
+        const int b_bound = bound(F_RS2(e.x));
+        CLK(0)
+
+        // ---- execute: a jump on the class, then the slow path's switch
+        // on the opcode for the rarer instructions ----
+        const u64 a40 = a_raw & M40, b40 = b_raw & M40;
+        const u64 c40 = use_imm ? imm & M40 : b40;  // the second operand
+        const int c_bound = use_imm ? (int)F_IMM_BITS(e.x) : b_bound;
         const u64 add40 = (a40 + b40) & M40;
         const u64 link = pc + 4;
-        const bool is_imm_shift = op >= 0x1B && op <= 0x1D;
-        const int shamt = is_imm_shift ? (int)((word >> 15) & 0xFF)
-                                       : (int)(b_raw & 0x3F);
-        // 40-bit signed order: flip bit 39 and compare unsigned.
-        const bool slt = (a40 ^ (1ull << 39)) < (b40 ^ (1ull << 39));
-        const bool sltu = a40 < b40;
-        const bool eq = a_raw == b_raw;
-
-        bool err = false;
-        bool writes = false;       // rd and its bound are written
+        // An immediate shift's amount, or b's low six bits.
+        const int shamt = use_imm ? (int)e.z : (int)(b_raw & 0x3F);
+        bool writes = true;        // rd and its bound are written
         u64 result = 0;
         int new_bound = 40;
         u64 next_pc = link;
@@ -159,208 +324,243 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
         // The memory columns of the trace row: the address is formed for
         // every instruction; width is 0 outside loads and stores.
         const u64 addr = a_raw + imm;
-        int width = 0;
+        const int width = F_WIDTH(e.x);
+        const int op = e.w & 0x7F;
+        const bool is_store = op >= 0x38 && op <= 0x3B;
         u64 loaded = 0;
         u64 off = 0;
+        bool err = false;
         int sys = -1;              // ECALL number, where it is one of 0..6
         int halt_to = HALT_NONE;
 
-        switch (op) {
-        case 0x00:  // ADD
-            result = add40; new_bound = imax(a_bound, b_bound) + 1; writes = true; break;
-        case 0x01:  // SUB
-            result = (a40 - b40) & M40; new_bound = imax(a_bound, b_bound); writes = true; break;
-        case 0x02:  // MUL
-            result = (a40 * b40) & M40; rc_value = result;
-            new_bound = a_bound + b_bound; writes = true; break;
-        case 0x03:  // MULH: bits [40, 80) of the product of the raw words
-            result = ((__umul64hi(a_raw, b_raw) << 24) | ((a_raw * b_raw) >> 40)) & M40;
-            new_bound = a_bound + b_bound; writes = true; break;
-        case 0x04: case 0x05: case 0x06: case 0x07: {  // DIVU REMU DIV REM
-            new_bound = a_bound; writes = true;
-            if (b_raw == 0) { err = true; break; }
-            if (op == 0x04) result = a_raw / b_raw;
-            else if (op == 0x05) result = a_raw % b_raw;
-            else {
-                // C-style truncation on the raw 64-bit words: divide the
-                // absolute values (a wrapping negate), then fix the sign.
-                const bool neg_a = a_raw >> 63, neg_b = b_raw >> 63;
-                const u64 abs_a = neg_a ? 0 - a_raw : a_raw;
-                const u64 abs_b = neg_b ? 0 - b_raw : b_raw;
-                if (op == 0x06) {
-                    const u64 q = abs_a / abs_b;
-                    result = (neg_a != neg_b) ? 0 - q : q;
-                } else {
-                    const u64 r = abs_a % abs_b;
-                    result = neg_a ? 0 - r : r;
-                }
-            }
-            break;
-        }
-        case 0x08:  // ADDI
-            result = (a40 + imm40) & M40; new_bound = imax(a_bound, imm_bits) + 1;
-            writes = true; break;
-        case 0x10: result = a40 & b40; new_bound = imin(a_bound, b_bound); writes = true; break;
-        case 0x11: result = a40 | b40; new_bound = imax(a_bound, b_bound); writes = true; break;
-        case 0x12: result = a40 ^ b40; new_bound = imax(a_bound, b_bound); writes = true; break;
-        case 0x13: result = a40 & imm40; new_bound = imin(a_bound, imm_bits); writes = true; break;
-        case 0x14: result = a40 | imm40; new_bound = imax(a_bound, imm_bits); writes = true; break;
-        case 0x15: result = a40 ^ imm40; new_bound = imax(a_bound, imm_bits); writes = true; break;
-        case 0x18: case 0x1B:  // SLL SLLI: an amount of 40 or more clears
+        switch (cls) {
+        case C_ADD: result = (a40 + c40) & M40; new_bound = imax(a_bound, c_bound) + 1; break;
+        case C_SUB: result = (a40 - b40) & M40; new_bound = imax(a_bound, b_bound); break;
+        case C_MUL:
+            result = rc_value = (a40 * b40) & M40; new_bound = a_bound + b_bound; break;
+        case C_AND: result = a40 & c40; new_bound = imin(a_bound, c_bound); break;
+        case C_OR: result = a40 | c40; new_bound = imax(a_bound, c_bound); break;
+        case C_XOR: result = a40 ^ c40; new_bound = imax(a_bound, c_bound); break;
+        // Shifts: an amount of 40 or more clears (SLL, SRL) or fills (SRA).
+        case C_SLL:
             result = shamt >= 40 ? 0 : (a40 << shamt) & M40;
-            new_bound = imin(a_bound + shamt, 40); writes = true; break;
-        case 0x19: case 0x1C:  // SRL SRLI
+            new_bound = imin(a_bound + shamt, 40); break;
+        case C_SRL:
             result = shamt >= 40 ? 0 : a40 >> shamt;
-            new_bound = imax(a_bound - shamt, 0); writes = true; break;
-        case 0x1A: case 0x1D: {  // SRA SRAI: the sign is bit 39
+            new_bound = imax(a_bound - shamt, 0); break;
+        case C_SRA: {  // the sign is bit 39
             const u64 srl = shamt >= 40 ? 0 : a40 >> shamt;
             const u64 fill = M40 ^ (M40 >> imin(shamt, 40));
             result = ((a40 >> 39) & 1) ? (srl | fill) : srl;
             new_bound = a_bound >= 40 ? 40 : imax(a_bound - shamt, 0);
-            writes = true; break;
-        }
-        case 0x20: result = sltu; new_bound = 1; writes = true; break;
-        case 0x21: result = !sltu; new_bound = 1; writes = true; break;
-        case 0x22: result = slt; new_bound = 1; writes = true; break;
-        case 0x23: result = !slt; new_bound = 1; writes = true; break;
-        case 0x24: result = eq; new_bound = 1; writes = true; break;  // raw 64 bits
-        case 0x25: result = !eq; new_bound = 1; writes = true; break;
-        case 0x26: case 0x27: case 0x28:  // CMOV CMOVZ CMOVNZ: the raw word moves
-            writes = (op == 0x27) ? (b_raw == 0) : (b_raw != 0);
-            result = a_raw; new_bound = imax(a_bound, s_bound[rd][tx]); break;
-        case 0x30: case 0x31: width = 1; new_bound = 8; break;    // LB LBU
-        case 0x32: case 0x33: width = 2; new_bound = 16; break;   // LH LHU
-        case 0x34: width = 4; new_bound = 32; break;              // LW
-        case 0x35: width = 8; new_bound = 40; break;              // LD
-        case 0x38: width = 1; break;                              // SB
-        case 0x39: width = 2; break;                              // SH
-        case 0x3A: width = 4; break;                              // SW
-        case 0x3B: width = 8; break;                              // SD
-        case 0x40: if (eq) next_pc = pc + imm; break;             // BEQ (raw)
-        case 0x41: if (!eq) next_pc = pc + imm; break;
-        case 0x42: if (slt) next_pc = pc + imm; break;
-        case 0x43: if (!slt) next_pc = pc + imm; break;
-        case 0x44: if (sltu) next_pc = pc + imm; break;
-        case 0x45: if (!sltu) next_pc = pc + imm; break;
-        case 0x48:  // JAL
-            result = link; new_bound = 64 - __clzll((long long)link); writes = true;
-            next_pc = pc + (u64)(long long)imm21; break;
-        case 0x49:  // JALR
-            result = link; new_bound = 64 - __clzll((long long)link); writes = true;
-            next_pc = (a_raw + imm) & ~1ull; break;
-        case 0x50: {  // ECALL: the number is r10
-            const u64 num = s_regs[10][tx];
-            if (num > 6) err = true;
-            else sys = (int)num;
             break;
         }
-        case 0x51: halt_to = HALT_EBREAK; break;
-        default: err = true; break;  // not an opcode
+        case C_CMP: case C_BRANCH: {
+            // 40-bit signed order: flip bit 39 and compare unsigned; SEQ,
+            // SNE, BEQ and BNE compare the raw 64-bit words.
+            const int kind = F_KIND(e.x);
+            const bool cond = neg != (kind == 0 ? a40 < b40
+                                      : kind == 1 ? (a40 ^ (1ull << 39)) < (b40 ^ (1ull << 39))
+                                      : a_raw == b_raw);
+            if (cls == C_CMP) { result = cond; new_bound = 1; }
+            else { writes = false; if (cond) next_pc = pc + imm; }
+            break;
         }
-
-        if (width) {
-            // Two windows: [0, low_bytes) and [stack_lo, STACK_TOP].
-            const bool in_low = addr < low_bytes;
-            const bool in_stack = addr >= stack_lo && addr <= STACK_TOP;
-            if (!has_mem || !(in_low || in_stack) || (addr & (u64)(width - 1))) {
-                err = true;
-            } else {
+        case C_CMOV:  // CMOV CMOVZ CMOVNZ: the raw word moves where b (not) 0
+            writes = (b_raw != 0) != neg;
+            result = a_raw; new_bound = imax(a_bound, bound(rd)); break;
+        case C_JUMP:  // JAL JALR
+            result = link; new_bound = 64 - __clzll((long long)link);
+            next_pc = neg ? (a_raw + imm) & ~1ull : pc + (u64)(long long)(int)e.z;
+            break;
+        default:
+            writes = false;
+            switch (op) {
+            case 0x03:  // MULH: bits [40, 80) of the product of the raw words
+                result = ((__umul64hi(a_raw, b_raw) << 24) | ((a_raw * b_raw) >> 40)) & M40;
+                new_bound = a_bound + b_bound; writes = true; break;
+            case 0x04: case 0x05: case 0x06: case 0x07: {  // DIVU REMU DIV REM
+                new_bound = a_bound; writes = true;
+                if (b_raw == 0) { err = true; break; }
+                if (op == 0x04) result = a_raw / b_raw;
+                else if (op == 0x05) result = a_raw % b_raw;
+                else {
+                    // C-style truncation on the raw 64-bit words: divide the
+                    // absolute values (a wrapping negate), then fix the sign.
+                    const bool neg_a = a_raw >> 63, neg_b = b_raw >> 63;
+                    const u64 abs_a = neg_a ? 0 - a_raw : a_raw;
+                    const u64 abs_b = neg_b ? 0 - b_raw : b_raw;
+                    if (op == 0x06) {
+                        const u64 q = abs_a / abs_b;
+                        result = (neg_a != neg_b) ? 0 - q : q;
+                    } else {
+                        const u64 r = abs_a % abs_b;
+                        result = neg_a ? 0 - r : r;
+                    }
+                }
+                break;
+            }
+            case 0x30: case 0x31: case 0x32: case 0x33: case 0x34: case 0x35:
+            case 0x38: case 0x39: case 0x3A: case 0x3B: {  // loads, stores
+                // Two windows: [0, low_bytes) and [stack_lo, STACK_TOP].
+                const bool in_low = addr < low_bytes;
+                const bool in_stack = addr >= stack_lo && addr <= STACK_TOP;
+                if (!has_mem || !(in_low || in_stack) || (addr & (u64)(width - 1))) {
+                    err = true;
+                    break;
+                }
                 off = in_low ? addr : low_bytes + (addr - stack_lo);
-                if (is_load) {
-                    for (int k = 0; k < width; ++k)
-                        loaded |= (u64)mem[off + k] << (8 * k);
+                if (!is_store) {
+                    loaded = load_bytes(mem + off, width);
                     result = loaded;
                     // LB and LH extend the sign through all 64 bits.
                     if (op == 0x30 && (loaded & 0x80)) result |= ~0xFFull;
                     if (op == 0x32 && (loaded & 0x8000)) result |= ~0xFFFFull;
+                    new_bound = width == 8 ? 40 : 8 * width;
                     writes = true;
                 }
+                break;
+            }
+            case 0x50: {  // ECALL: the number is r10
+                const u64 num = reg(10);
+                if (num > 6) err = true;
+                else sys = (int)num;
+                break;
+            }
+            case 0x51: halt_to = HALT_EBREAK; break;
+            default: err = true; break;  // not an opcode
             }
         }
+        CLK(1)
+        CLK(2)
 
         // ---- a fault beats a pause beats a commit ----
-        if (err) {
+        if (__builtin_expect(err, 0)) {
             halted = HALT_ERROR;
             break;
         }
         const bool pause = sys >= 3;
         const bool commit = !pause;
 
-        if (collect) {
-            const long long row = (long long)t * lanes + lane;
-            ptr<uint8_t>(a, T_VALID)[row] = 1;
-            ptr<u64>(a, T_CYCLE)[row] = cycles;
-            ptr<u64>(a, T_PC)[row] = pc;
-            ptr<uint32_t>(a, T_WORD)[row] = word;
-            u64* t_regs = ptr<u64>(a, T_REGS) + row * 16;
-            int* t_bounds = ptr<int>(a, T_BOUNDS) + row * 16;
-#pragma unroll
-            for (int r = 0; r < 16; ++r) {
-                t_regs[r] = s_regs[r][tx];
-                t_bounds[r] = s_bound[r][tx];
-            }
-            // A store's value is cut to its width; a load's is the bytes read.
+        // ---- the trace row ----
+        if constexpr (COLLECT) {
+            // The wrapper keeps a segment's rows x lanes x 16 below 2^31.
+            const int row = (row0 + t) * (int)lanes + (int)lane;
+            // A store's value is cut to its width; a load's is the bytes
+            // read.  The range-check witness of a deferred check: an ADD or
+            // MUL whose new bound exceeds the data width.
             const u64 wmask = width == 8 ? ~0ull : (1ull << (8 * width)) - 1;
-            ptr<uint8_t>(a, T_MEM_VALID)[row] = commit && width > 0;
-            ptr<u64>(a, T_MEM_ADDR)[row] = addr;
-            ptr<u64>(a, T_MEM_VALUE)[row] = is_store ? (b_raw & wmask) : loaded;
-            ptr<int>(a, T_MEM_WIDTH)[row] = width;
-            ptr<uint8_t>(a, T_MEM_IS_WRITE)[row] = is_store;
-            ptr<uint8_t>(a, T_RC_VALID)[row] =
-                commit && (op == 0x00 || op == 0x02) && new_bound > 40;
-            ptr<u64>(a, T_RC_VALUE)[row] = rc_value;
+            const u64 value = is_store ? (b_raw & wmask) : loaded;
+            const u64 packed = e.w | (u64)width << 32
+                | (u64)(commit && width > 0) << 40 | (u64)is_store << 41
+                | (u64)(commit && (op == 0x00 || op == 0x02) && new_bound > 40) << 42;
+            if constexpr (WARP) {
+                if (j < 16) {
+                    ptr<u64>(a, T_REGS)[row * 16 + j] = my_reg;
+                    ptr<int>(a, T_BOUNDS)[row * 16 + j] = my_bound;
+                }
+                u64* slot = s_rows[tx / 32][t & 31];
+                slot[0] = cycles; slot[1] = pc; slot[2] = addr;
+                slot[3] = value; slot[4] = rc_value; slot[5] = packed;
+                staged_to = t + 1;
+                if ((t & 31) == 31) flush();
+            } else {
+                u64* t_regs = ptr<u64>(a, T_REGS) + row * 16;
+                int* t_bounds = ptr<int>(a, T_BOUNDS) + row * 16;
+#pragma unroll
+                for (int r = 0; r < 16; ++r) {
+                    t_regs[r] = s_regs[r][tx];
+                    t_bounds[r] = s_bound[r][tx];
+                }
+                put_row(a, row, cycles, pc, addr, value, rc_value, packed);
+            }
         }
+        CLK(3)
 
-        if (pause) {  // the host services the syscall, then advances the lane
-            halted = PAUSE_CRYPTO;
+        if (__builtin_expect(pause, 0)) {  // the host services the syscall,
+            halted = PAUSE_CRYPTO;          // then advances the lane
             break;
         }
 
         // ---- commit ----
         if (writes && rd != 0) {
-            s_regs[rd][tx] = result;
-            s_bound[rd][tx] = new_bound;
+            set_reg(rd, result);
+            set_bound(rd, new_bound);
         }
-        if (is_store) {
-            for (int k = 0; k < width; ++k) mem[off + k] = (uint8_t)(b_raw >> (8 * k));
-        }
-        if (sys == 0) {
-            halt_to = HALT_EXIT;
-            exit_code = s_regs[11][tx];
-        } else if (sys == 1) {  // READ -> r10 (0 past the end of the tape)
-            s_regs[10][tx] = input_pos < n_inputs
-                ? inputs[imin(input_pos, max_inputs - 1)] : 0;
-            ++input_pos;
-        } else if (sys == 2) {  // WRITE r11
-            outputs[imin(out_pos, max_outputs - 1)] = s_regs[11][tx];
-            ++out_pos;
+        if (__builtin_expect(cls == C_SLOW, 0)) {
+            if (is_store) store_bytes(mem + off, width, b_raw);
+            if (sys == 0) {
+                halt_to = HALT_EXIT;
+                exit_code = reg(11);
+            } else if (sys == 1) {  // READ -> r10 (0 past the end of the tape)
+                set_reg(10, input_pos < n_inputs
+                        ? inputs[imin(input_pos, max_inputs - 1)] : 0);
+                ++input_pos;
+            } else if (sys == 2) {  // WRITE r11
+                const u64 v = reg(11);
+                if (leader) outputs[imin(out_pos, max_outputs - 1)] = v;
+                ++out_pos;
+            }
         }
         pc = next_pc;
         ++cycles;
-        halted = halt_to;
+        CLK(4)
+        if (__builtin_expect(halt_to != HALT_NONE, 0)) {
+            halted = halt_to;
+            break;
+        }
+      }
+      flush();
     }
+    CLK_END(leader)
 
+    if constexpr (WARP) {
+        if (j < 16) {
+            g_regs[j] = my_reg;
+            g_bound[j] = my_bound;
+        }
+    } else {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-        g_regs[r] = s_regs[r][tx];
-        g_bound[r] = s_bound[r][tx];
+        for (int r = 0; r < 16; ++r) {
+            g_regs[r] = s_regs[r][tx];
+            g_bound[r] = s_bound[r][tx];
+        }
     }
-    ptr<u64>(a, D_PC)[lane] = pc;
-    ptr<u64>(a, D_CYCLES)[lane] = cycles;
-    ptr<u64>(a, D_EXIT)[lane] = exit_code;
-    ptr<int>(a, D_HALTED)[lane] = halted;
-    ptr<int>(a, D_INPUT_POS)[lane] = input_pos;
-    ptr<int>(a, D_OUT_POS)[lane] = out_pos;
+    if (leader) {
+        ptr<u64>(a, D_PC)[lane] = pc;
+        ptr<u64>(a, D_CYCLES)[lane] = cycles;
+        ptr<u64>(a, D_EXIT)[lane] = exit_code;
+        ptr<int>(a, D_HALTED)[lane] = halted;
+        ptr<int>(a, D_INPUT_POS)[lane] = input_pos;
+        ptr<int>(a, D_OUT_POS)[lane] = out_pos;
+        if (lane_chunk) lane_chunk[lane] = k;
+    }
+}
+
+template <bool WARP, bool COLLECT>
+static void launch_layout(const Interp& a, unsigned blocks, cudaStream_t stream) {
+    interp_kernel<WARP, COLLECT><<<blocks, THREADS, 0, stream>>>(a);
+}
+
+static int launch(const long long* desc, void* stream) {
+    Interp a;
+    for (int k = 0; k < D_COUNT; ++k) a.d[k] = desc[k];
+    if (a.d[D_LANES] <= 0 || a.d[D_CHUNK] <= 0 || a.d[D_SEG_HI] <= a.d[D_SEG_LO])
+        return 0;
+    if (a.d[D_N_WORDS] <= 0 || a.d[D_MAX_INPUTS] <= 0 || a.d[D_MAX_OUTPUTS] <= 0)
+        return (int)cudaErrorInvalidValue;
+    const bool warp = a.d[D_WARP] != 0, collect = a.d[D_COLLECT] != 0;
+    const long long per_block = warp ? THREADS / 32 : THREADS;
+    const unsigned blocks = (unsigned)((a.d[D_LANES] + per_block - 1) / per_block);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (warp && collect) launch_layout<true, true>(a, blocks, s);
+    else if (warp) launch_layout<true, false>(a, blocks, s);
+    else if (collect) launch_layout<false, true>(a, blocks, s);
+    else launch_layout<false, false>(a, blocks, s);
+    return (int)cudaGetLastError();
 }
 
 // desc: D_COUNT 64-bit words on the host (see the enum above).
-extern "C" int interp_chunk(const long long* desc, void* stream) {
-    Interp a;
-    for (int k = 0; k < D_COUNT; ++k) a.d[k] = desc[k];
-    if (a.d[D_LANES] <= 0 || a.d[D_CHUNK] <= 0) return 0;
-    if (a.d[D_N_WORDS] <= 0 || a.d[D_MAX_INPUTS] <= 0 || a.d[D_MAX_OUTPUTS] <= 0)
-        return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((a.d[D_LANES] + THREADS - 1) / THREADS);
-    interp_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+extern "C" int interp_run(const long long* desc, void* stream) {
+    return launch(desc, stream);
 }

@@ -1,5 +1,6 @@
-"""Batched interpreter: kernel K3 (``csrc/interp.cu``) runs a chunk of
-cycles of every lane in one launch, one thread per lane; the plain torch
+"""Batched interpreter: kernel K3 (``csrc/interp.cu``) runs every lane of a
+run to its halt or pause in one launch (``interp_run``; ``interp_chunk``
+is one chunk of it), a thread or a warp per lane; the plain torch
 version of the same step serves CPU tensors and the tests."""
 
 from .columnar import (
@@ -12,7 +13,10 @@ from .columnar import (
     HALT_CYCLE_LIMIT,
     HALT_ERROR,
     PAUSE_CRYPTO,
+    decode_table,
     interp_chunk,
     interp_chunk_plain,
+    interp_run,
+    interp_run_plain,
     program_features,
 )

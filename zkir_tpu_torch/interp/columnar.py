@@ -1,13 +1,16 @@
 """Batched interpreter for ZK-IR v3.4 on torch tensors.
 
 Counterpart of ``zkir_tpu/interp/columnar.py``: the same machine, the same
-result and trace dicts, another shape of program.  On a GPU one launch of
-kernel K3 (``csrc/interp.cu``, entry point ``interp_chunk``) runs ``chunk``
-cycles of every lane, one thread per lane with the loop over cycles inside
-the thread.  What the reference builds for the TPU (u32 limb pairs, the
-one-hot register file and fetch, one compiled step per opcode-family set)
-has no counterpart here; ``program_features`` stays only to drop the memory
-image of a program that cannot touch memory.
+result and trace dicts, another shape of program.  On a GPU kernel K3
+(``csrc/interp.cu``) runs the lanes: ``interp_run`` takes every lane on
+until it halts, pauses for a crypto syscall or reaches the end of a
+segment of chunks, in one launch; ``interp_chunk`` is ``interp_run`` over
+one chunk of every lane (``TpuInterpreter.chunk_fn``).  A thread runs a
+lane where lanes are many, a warp where they are few (``warp_layout``).
+What the reference builds for the TPU (u32 limb pairs, the one-hot
+register file and fetch, one compiled step per opcode-family set) has no
+counterpart here; ``program_features`` stays only to drop the memory image
+of a program that cannot touch memory.
 
 State on the device (``MachineState``): int64 tensors hold the 64-bit
 words (two's complement bit patterns of the machine's unsigned values),
@@ -17,15 +20,19 @@ the stack below ``STACK_TOP``).  Unsigned 64-bit views are made with numpy
 at the result boundary only.
 
 ``interp_chunk_plain`` is the plain version: the step as torch operators
-over the lane axis, in a Python loop over cycles.  CPU tensors take it; a
-CUDA state launches the kernel or raises.  torch has no unsigned 64-bit
-arithmetic, so the plain version builds logical shifts, unsigned compares,
-the unsigned divide and MULH's 128-bit product from int64 in the ``u64_*``
-helpers below.
+over the lane axis, in a Python loop over cycles; ``interp_run_plain``
+drives it chunk by chunk as the kernel's segment runs.  CPU tensors take
+them; a CUDA state launches the kernel or raises.  torch has no unsigned
+64-bit arithmetic, so the plain version builds logical shifts, unsigned
+compares, the unsigned divide and MULH's 128-bit product from int64 in the
+``u64_*`` helpers below.
 
-Crypto syscalls (SHA-256, Poseidon2, Keccak, Blake3) pause the lane;
-between chunks the host services them on the lane's input and output byte
-ranges and resumes it.
+``chunk`` cycles stay the unit of the trace's layout and of the cycle
+limit, as in the reference's host loop.  ``TpuInterpreter.resume`` (one
+loop for both devices) allocates the trace in segments of chunks that
+double, launches one segment at a time, services the crypto syscalls of
+paused lanes (SHA-256, Poseidon2, Keccak, Blake3) on the host between
+launches, and copies the trace to the host once, at the end.
 
 Not ported: ``InterpConfig(deferred=True)`` (the deferred-carry model and
 its ``norm_*`` trace columns) raises ``NotImplementedError``.
@@ -67,7 +74,7 @@ class InterpConfig:
                                    # up to and including STACK_TOP
     max_inputs: int = 64
     max_outputs: int = 64
-    chunk: int = 256               # cycles per launch
+    chunk: int = 256               # cycles per chunk of the trace
     enable_memory: bool = True     # auto-cleared when the program has no
                                    # loads/stores/crypto (static analysis)
     collect_trace: bool = False
@@ -111,6 +118,87 @@ _TRACE_COLUMNS = {
     "mem_is_write": (torch.bool, ()), "rc_valid": (torch.bool, ()),
     "rc_value": (torch.int64, ()),
 }
+
+
+# The state tensors the kernel writes.
+_MUTABLE = ("pc", "regs", "bound_bits", "halted", "exit", "cycles", "mem",
+            "input_pos", "outputs", "out_pos")
+# Bytes of trace the first segment of a run may take; later segments
+# double.  The kernel indexes the 16 registers of a segment's row x lane
+# with 32-bit integers: rows x lanes stays below MAX_SEGMENT_CELLS.
+FIRST_SEGMENT_BYTES = 1 << 26
+MAX_SEGMENT_CELLS = 1 << 27
+TRACE_ROW_BYTES = 244
+# Up to this many lanes a warp runs each lane, beyond it a thread.  On an
+# H100 (chip_smoke.py's sweeps of the loop program): without a trace the
+# layouts tie up to 512 lanes and a thread per lane wins from 1,024; with a
+# trace a warp per lane wins at every count measured, 1 to 1,024 lanes (a
+# thread per lane stores the row's registers lane-strided).
+WARP_LANES = 256
+WARP_LANES_TRACED = 1024
+
+
+def warp_layout(lanes: int, trace: bool) -> bool:
+    """Whether K3 runs ``lanes`` lanes a warp each (else a thread each),
+    with or without a trace."""
+    return lanes <= (WARP_LANES_TRACED if trace else WARP_LANES)
+
+
+# csrc/interp.cu's instruction classes (its C_* enum) and the opcodes of
+# each: class, second operand the immediate (1 << 4), compare kind (<< 5:
+# 0 unsigned <, 1 signed <, 2 ==) and its negation (1 << 7, also CMOVZ
+# and JALR), the access width (<< 27).  Other opcodes take the slow path.
+_CLASSES = {
+    0: {0x00: 0, 0x08: 1 << 4},                               # ADD ADDI
+    1: {0x01: 0}, 2: {0x02: 0},                               # SUB MUL
+    3: {0x10: 0, 0x13: 1 << 4}, 4: {0x11: 0, 0x14: 1 << 4},   # AND OR
+    5: {0x12: 0, 0x15: 1 << 4},                               # XOR
+    6: {0x18: 0, 0x1B: 1 << 4}, 7: {0x19: 0, 0x1C: 1 << 4},   # SLL SRL
+    8: {0x1A: 0, 0x1D: 1 << 4},                               # SRA
+    9: {0x20: 0 << 5, 0x21: 0 << 5 | 1 << 7, 0x22: 1 << 5,    # SLTU SGEU SLT
+        0x23: 1 << 5 | 1 << 7, 0x24: 2 << 5, 0x25: 2 << 5 | 1 << 7},
+    10: {0x26: 0, 0x27: 1 << 7, 0x28: 0},                     # CMOV CMOVZ CMOVNZ
+    11: {0x48: 0, 0x49: 1 << 7},                              # JAL JALR
+    12: {0x40: 2 << 5, 0x41: 2 << 5 | 1 << 7, 0x42: 1 << 5,   # BEQ BNE BLT
+         0x43: 1 << 5 | 1 << 7, 0x44: 0 << 5, 0x45: 1 << 7},  # BGE BLTU BGEU
+}
+_C_SLOW = 13
+_WIDTHS = {0x30: 1, 0x31: 1, 0x38: 1, 0x32: 2, 0x33: 2, 0x39: 2, 0x34: 4,
+           0x3A: 4, 0x35: 8, 0x3B: 8}
+
+
+def _op_info() -> List[int]:
+    info = [_C_SLOW | _WIDTHS.get(op, 0) << 27 for op in range(128)]
+    for cls, ops in _CLASSES.items():
+        for op, bits in ops.items():
+            info[op] = cls | bits
+    return info
+
+
+def decode_table(code: torch.Tensor) -> torch.Tensor:
+    """The kernel's decoded program: int32 ``[n, 4]`` on ``code``'s device,
+    one row per word of the int32 word vector ``code``: the opcode's
+    ``_CLASSES`` bits | rd << 8 | rs1 << 12 | rs2 << 16 | imm_bits << 20
+    (S- and B-type words carry rs1 in the rd field and rs2 in rs1's, and
+    write no rd; ``imm_bits`` is the bit length of the immediate as an
+    unsigned 64-bit word); imm17 sign-extended; JAL's imm21 sign-extended,
+    or the amount of an immediate shift; the word."""
+    w = code.to(torch.int64) & 0xFFFFFFFF
+    op = w & 0x7F
+    f_rd, f_rs1, f_rs2 = (w >> 7) & 0xF, (w >> 11) & 0xF, (w >> 15) & 0xF
+    imm = (((w >> 15) & 0x1FFFF) ^ (1 << 16)) - (1 << 16)
+    imm21 = (((w >> 11) & 0x1FFFFF) ^ (1 << 20)) - (1 << 20)
+    sb = ((op >= 0x38) & (op <= 0x3B)) | ((op >= 0x40) & (op <= 0x45))
+    info = torch.tensor(_op_info(), dtype=torch.int64, device=code.device)
+    fields = (info[op] | torch.where(sb, 0, f_rd) << 8
+              | torch.where(sb, f_rd, f_rs1) << 12
+              | torch.where(sb, f_rs1, f_rs2) << 16
+              | u64_bit_length(imm).to(torch.int64) << 20)
+    alt = torch.where(op == Op.JAL, imm21,
+                      torch.where((op >= 0x1B) & (op <= 0x1D),
+                                  (w >> 15) & 0xFF, 0))
+    table = torch.stack([fields, imm, alt, w], dim=1)
+    return ((table + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
 
 
 def program_features(code: np.ndarray) -> FrozenSet[str]:
@@ -583,38 +671,125 @@ def _refuse_deferred(cfg: InterpConfig) -> None:
             "yet (ROADMAP Queue 1: the deferred-carry model)")
 
 
-def interp_chunk(code, n_words: int, state: MachineState, cfg: InterpConfig):
-    """Run ``cfg.chunk`` cycles of every lane: (state, trace or None).
-
-    ``code``: int32 ``[>= n_words]`` instruction words on the state's
-    device.  A CUDA state launches kernel K3, which updates a copy of the
-    state's mutable tensors in place; a CPU state takes the plain
-    version."""
-    _refuse_deferred(cfg)
+def _check_code(code, n_words: int) -> None:
     if not 0 < n_words <= code.shape[0] \
             or CODE_BASE + 4 * n_words >= 1 << 32:
         raise ValueError(f"n_words {n_words} outside the code buffer")
+
+
+def _check_cells(rows: int, cfg: InterpConfig) -> None:
+    if cfg.collect_trace and rows * cfg.lanes >= MAX_SEGMENT_CELLS:
+        raise ValueError(f"a trace of {rows} rows x {cfg.lanes} lanes "
+                         f"reaches {MAX_SEGMENT_CELLS} cells: run it in "
+                         "shorter chunks or segments")
+
+
+def _new_trace(rows: int, lanes: int, device) -> Dict[str, torch.Tensor]:
+    """Zeroed trace columns of ``rows`` rows: a row the kernel does not
+    write keeps ``valid`` 0."""
+    return {name: torch.zeros((rows, lanes, *tail), dtype=dt, device=device)
+            for name, (dt, tail) in _TRACE_COLUMNS.items()}
+
+
+def interp_chunk(code, n_words: int, state: MachineState, cfg: InterpConfig,
+                 *, decoded=None):
+    """Run ``cfg.chunk`` cycles of every lane: (state, trace or None).
+
+    ``code``: int32 ``[>= n_words]`` instruction words on the state's
+    device; ``decoded``: its ``decode_table`` (made here if not given).  A
+    CUDA state runs ``interp_run`` over the one-chunk segment [0, 1) on a
+    copy of the state's mutable tensors, into a new trace; a CPU state
+    takes the plain version."""
+    _refuse_deferred(cfg)
+    _check_code(code, n_words)
     if not state.pc.is_cuda:
         return interp_chunk_plain(code, n_words, state, cfg)
+    new = state._replace(**{name: getattr(state, name).clone()
+                            for name in _MUTABLE})
+    trace = (_new_trace(cfg.chunk, cfg.lanes, state.pc.device)
+             if cfg.collect_trace else None)
+    if decoded is None:
+        decoded = decode_table(code)
+    return interp_run(code, n_words, new, None, 0, 1, cfg, trace,
+                      decoded=decoded), trace
+
+
+def interp_run(code, n_words: int, state: MachineState, lane_chunk,
+               seg_lo: int, seg_hi: int, cfg: InterpConfig, trace, *,
+               decoded) -> MachineState:
+    """Run every lane whose ``halted`` is 0 from its chunk ``lane_chunk``
+    (int32 ``[L]``, or None: every lane from ``seg_lo``) until it halts,
+    pauses or reaches chunk ``seg_hi``, writing chunk k's rows into rows
+    ``(k - seg_lo) * chunk ...`` of ``trace`` (a dict of ``_new_trace``
+    columns, or None); ``lane_chunk`` ends at each lane's next chunk.  A
+    CUDA state is run in place by one launch of kernel K3 and returned; a
+    CPU state takes ``interp_run_plain``, which returns a new state
+    (``lane_chunk`` and ``trace`` are written in place on both)."""
+    _refuse_deferred(cfg)
+    _check_code(code, n_words)
+    if not state.pc.is_cuda:
+        if lane_chunk is None:
+            lane_chunk = torch.full((cfg.lanes,), seg_lo, dtype=torch.int32)
+        return interp_run_plain(code, n_words, state, lane_chunk, seg_lo,
+                                seg_hi, cfg, trace)
     from .. import _kernels
 
     _check_state(code, state, cfg)
-    new = state._replace(**{
-        name: getattr(state, name).clone()
-        for name in ("pc", "regs", "bound_bits", "halted", "exit", "cycles",
-                     "mem", "input_pos", "outputs", "out_pos")})
-    trace = None
-    if cfg.collect_trace:
-        trace = {name: torch.zeros((cfg.chunk, cfg.lanes, *tail), dtype=dt,
-                                   device=state.pc.device)
-                 for name, (dt, tail) in _TRACE_COLUMNS.items()}
-    _kernels.launch("interp_chunk",
-                    _descriptor(code, n_words, new, cfg, trace))
-    return new, trace
+    if lane_chunk is not None and (
+            lane_chunk.device != state.pc.device
+            or lane_chunk.dtype != torch.int32
+            or tuple(lane_chunk.shape) != (cfg.lanes,)
+            or not lane_chunk.is_contiguous()):
+        raise ValueError("lane_chunk must be a contiguous int32 [lanes] "
+                         "tensor on the state's device")
+    if trace is not None:
+        rows = (seg_hi - seg_lo) * cfg.chunk
+        _check_cells(rows, cfg)
+        for name, (dt, tail) in _TRACE_COLUMNS.items():
+            t = trace[name]
+            if t.dtype != dt or tuple(t.shape) != (rows, cfg.lanes, *tail) \
+                    or t.device != state.pc.device or not t.is_contiguous():
+                raise ValueError(f"trace[{name!r}] must be a contiguous "
+                                 f"{dt} {(rows, cfg.lanes, *tail)} tensor")
+    _kernels.launch("interp_run", _descriptor(
+        code, n_words, state, cfg, trace, decoded=decoded,
+        lane_chunk=lane_chunk, seg=(seg_lo, seg_hi)))
+    return state
 
 
-def _descriptor(code, n_words, s: MachineState, cfg: InterpConfig, trace):
+def interp_run_plain(code, n_words: int, state: MachineState, lane_chunk,
+                     seg_lo: int, seg_hi: int, cfg: InterpConfig, trace):
+    """``interp_run`` in plain torch: ``interp_chunk_plain`` over the lanes
+    at the lowest chunk index, the others held still, until no lane is
+    left to run in the segment; only the valid rows of the lanes that ran
+    are written, so the trace is word for word the kernel's."""
+    while True:
+        live = (state.halted == HALT_NONE) & (lane_chunk < seg_hi)
+        if not bool(live.any()):
+            return state
+        k = int(lane_chunk[live].min())
+        part = live & (lane_chunk == k)
+        held = torch.where(part, state.halted,
+                           torch.full_like(state.halted, HALT_ERROR))
+        new, rows = interp_chunk_plain(code, n_words,
+                                       state._replace(halted=held), cfg)
+        state = new._replace(halted=torch.where(part, new.halted,
+                                                state.halted))
+        lane_chunk[part] = k + 1
+        if trace is not None:
+            r0 = (k - seg_lo) * cfg.chunk
+            keep = rows["valid"] & part
+            for name, col in rows.items():
+                dst = trace[name][r0:r0 + cfg.chunk]
+                m = keep.reshape(*keep.shape, *([1] * (col.dim() - 2)))
+                dst.copy_(torch.where(m, col, dst))
+
+
+def _descriptor(code, n_words, s: MachineState, cfg: InterpConfig, trace, *,
+                decoded=None, lane_chunk=None, seg=(0, 1), warp=None):
     """The host descriptor as ``csrc/interp.cu`` reads it (its enum)."""
+    if warp is None:
+        warp = warp_layout(cfg.lanes, cfg.collect_trace)
     words = [
         code.data_ptr(), n_words, cfg.lanes, cfg.chunk,
         s.pc.data_ptr(), s.regs.data_ptr(), s.bound_bits.data_ptr(),
@@ -627,6 +802,9 @@ def _descriptor(code, n_words, s: MachineState, cfg: InterpConfig, trace):
         int(trace is not None),
         *((trace[name].data_ptr() for name in _TRACE_COLUMNS)
           if trace is not None else (0,) * len(_TRACE_COLUMNS)),
+        0 if decoded is None else decoded.data_ptr(),
+        0 if lane_chunk is None else lane_chunk.data_ptr(),
+        *seg, int(warp),
     ]
     return (ctypes.c_longlong * len(words))(*words)
 
@@ -664,6 +842,7 @@ class TpuInterpreter:
         padded = np.zeros(self.n_words, dtype=np.uint32)
         padded[: code.size] = code
         self.code = torch.from_numpy(padded.view(np.int32)).to(self.device)
+        self.decoded = decode_table(self.code)
         self.features = program_features(code)
         # A program with no load, store or ECALL cannot touch data memory
         # (fetch reads the immutable code buffer): it carries no image.
@@ -673,7 +852,8 @@ class TpuInterpreter:
 
     def chunk_fn(self, state: MachineState):
         """``config.chunk`` cycles of every lane: (state, trace or None)."""
-        return interp_chunk(self.code, self.n_words, state, self.config)
+        return interp_chunk(self.code, self.n_words, state, self.config,
+                            decoded=self.decoded)
 
     # ------------------------------------------------------------------
     # State construction
@@ -753,28 +933,61 @@ class TpuInterpreter:
     def resume(self, state: MachineState,
                max_cycles: int = 1_000_000) -> Dict[str, Any]:
         """Run ``state`` on to completion (at most ``max_cycles`` more
-        steps), as ``run`` does from the initial state."""
-        traces: List[Dict[str, np.ndarray]] = []
-        steps_done = 0
-        while True:
-            state, trace = self.chunk_fn(state)
-            steps_done += self.config.chunk
-            if trace is not None:
-                traces.append({k: v.cpu().numpy() for k, v in trace.items()})
+        steps), as ``run`` does from the initial state.
 
-            halted = state.halted.cpu().numpy()
-            if np.any(halted == PAUSE_CRYPTO):
-                state = self._service_crypto(state)
-                halted = state.halted.cpu().numpy()
+        The reference's host loop runs chunk after chunk, services the
+        paused lanes after each, and stops once no lane runs or after
+        ``ceil(max_cycles / chunk)`` chunks, marking the lanes still
+        running ``HALT_CYCLE_LIMIT``.  Here each lane keeps its own chunk
+        index and runs on by itself through a segment of chunks (one
+        ``interp_run``); the host services the paused lanes and runs the
+        segment again until no lane is left in it, then allocates the next
+        segment, twice as long.  The trace keeps the chunks the reference
+        loop would have run.  Works in place on a copy of ``state``."""
+        cfg = self.config
+        dev = state.pc.device
+        state = state._replace(**{name: getattr(state, name).clone()
+                                  for name in _MUTABLE})
+        lane_chunk = torch.zeros(cfg.lanes, dtype=torch.int32, device=dev)
+        k_max = max(1, -(-max_cycles // cfg.chunk))
+        size = most = k_max
+        if cfg.collect_trace:
+            cells = cfg.chunk * cfg.lanes
+            most = max(1, (MAX_SEGMENT_CELLS - 1) // cells)
+            size = max(1, min(k_max, most, FIRST_SEGMENT_BYTES
+                              // (TRACE_ROW_BYTES * cells)))
+        segments: List[Dict[str, torch.Tensor]] = []
+        seg_lo = 0
+        while True:
+            seg_hi = min(seg_lo + size, k_max)
+            trace = (_new_trace((seg_hi - seg_lo) * cfg.chunk, cfg.lanes, dev)
+                     if cfg.collect_trace else None)
+            while True:
+                state = interp_run(self.code, self.n_words, state,
+                                   lane_chunk, seg_lo, seg_hi, cfg, trace,
+                                   decoded=self.decoded)
+                halted, at = torch.stack(
+                    [state.halted, lane_chunk]).cpu().numpy()
+                if np.any(halted == PAUSE_CRYPTO):
+                    state = self._service_crypto(state)
+                    halted = np.where(halted == PAUSE_CRYPTO, HALT_NONE,
+                                      halted)
+                if not np.any((halted == HALT_NONE) & (at < seg_hi)):
+                    break
+            if trace is not None:
+                segments.append(trace)
             if np.all(halted != HALT_NONE):
                 break
-            if steps_done >= max_cycles:
+            if seg_hi >= k_max:
                 state = state._replace(halted=torch.where(
                     state.halted == HALT_NONE,
                     torch.full_like(state.halted, HALT_CYCLE_LIMIT),
                     state.halted))
                 break
-        return self._collect(state, traces)
+            seg_lo, size = seg_hi, min(2 * size, most)
+        # The reference loop's chunks: up to the last one a lane ran in.
+        return self._collect(state, segments,
+                             max(1, int(at.max())) * cfg.chunk)
 
     def _service_crypto(self, state: MachineState) -> MachineState:
         """Host-side servicing of paused crypto syscalls (one per lane):
@@ -831,7 +1044,8 @@ class TpuInterpreter:
             regs=new_regs, mem=mem, pc=pc, cycles=cycles, bound_bits=bounds)
 
     def _collect(self, state: MachineState,
-                 traces: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
+                 segments: List[Dict[str, torch.Tensor]],
+                 rows: int) -> Dict[str, Any]:
         out_pos = state.out_pos.cpu().numpy()
         outputs = _u64(state.outputs)
         result: Dict[str, Any] = {
@@ -845,10 +1059,11 @@ class TpuInterpreter:
                 for lane in range(self.config.lanes)
             ],
         }
-        if traces:
+        if segments:
+            cols = {key: [t[key] for t in segments] for key in segments[0]}
             result["trace"] = _merge_trace_host({
-                key: np.concatenate([t[key] for t in traces], axis=0)
-                for key in traces[0]})
+                key: (c[0] if len(c) == 1 else torch.cat(c))[:rows]
+                .cpu().numpy() for key, c in cols.items()})
         return result
 
 

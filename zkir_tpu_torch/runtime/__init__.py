@@ -1,1 +1,2 @@
-"""Host runtime pieces the prover needs (crypto syscall digests)."""
+"""Host runtime pieces: crypto syscall digests (the interpreter and the
+prover) and the native engine (``native_vm``, ``run --engine native``)."""

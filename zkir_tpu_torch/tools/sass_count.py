@@ -18,12 +18,14 @@ cycle loop, one path per opcode):
 
     python3 zkir_tpu_torch/tools/sass_count.py interp.sass interp_kernel --floor
 
-prints the instructions that every trip of the kernel's outermost loop
-executes whatever path it takes: those that no forward branch inside the
-loop can jump over (a branch past the loop's end leaves it and ends the
-count of trips) (an indirect branch counts as jumping to the end of the
-convergence region around it).  That is a floor on the instructions of one
-trip, so a time bound computed from it is a valid lower bound.
+prints the instructions that every trip of the kernel's loop over machine
+cycles (the outermost loop, or the widest loop inside it where a loop over
+chunks wraps it) executes whatever path it takes: those that no forward
+branch inside the loop can jump over (a branch past the loop's end leaves
+it and ends the count of trips) (an indirect branch counts as jumping to
+the end of the convergence region around it).  That is a floor on the
+instructions of one trip, so a time bound computed from it is a valid
+lower bound.
 """
 
 import collections
@@ -50,13 +52,35 @@ def instructions(path, kernel):
     return out
 
 
-def loop_floor(ins):
-    """(start, end, count) of the outermost loop and of its instructions
-    that no forward branch inside it can skip."""
+def loops(ins):
+    """(start, end) of every loop (a backward branch), widest first."""
     back = [(int(m.group(1), 16), addr) for addr, _, text in ins
             for m in [re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)]
             if m and int(m.group(1), 16) < addr]
-    start, end = max(back, key=lambda se: se[1] - se[0])
+    return sorted(back, key=lambda se: se[0] - se[1])
+
+
+def cycle_loop(ins):
+    """The interpreter's loop over machine cycles: the outermost loop, or
+    the widest loop inside it where that spans more than half of it (a
+    loop over chunks around the loop over cycles)."""
+    outer, *rest = loops(ins)
+    inner = [(a, b) for a, b in rest if outer[0] <= a and b <= outer[1]]
+    if inner and 2 * (inner[0][1] - inner[0][0]) > outer[1] - outer[0]:
+        return inner[0]
+    return outer
+
+
+def cycle_loop_floor(ins):
+    """(static instructions, floor) of ``cycle_loop``."""
+    start, end, count = loop_floor(ins, cycle_loop(ins))
+    return sum(1 for a, _, _ in ins if start <= a <= end), count
+
+
+def loop_floor(ins, loop):
+    """(start, end, count) of ``loop`` and of its instructions that no
+    forward branch inside it can skip."""
+    start, end = loop
     skipped = []        # [lo, hi): addresses some forward branch jumps over
     region_end = None
     for addr, op, text in ins:
@@ -77,9 +101,9 @@ def loop_floor(ins):
 def main():
     if sys.argv[-1] == "--floor":
         ins = instructions(sys.argv[1], sys.argv[2])
-        start, end, count = loop_floor(ins)
+        start, end, count = loop_floor(ins, cycle_loop(ins))
         body = sum(1 for a, _, _ in ins if start <= a <= end)
-        print(f"{sys.argv[2]}: {len(ins)} static instructions; outermost "
+        print(f"{sys.argv[2]}: {len(ins)} static instructions; cycle "
               f"loop {start:#x}..{end:#x} of {body}; every trip executes "
               f"at least {count}")
         return
