@@ -16,7 +16,9 @@ path):
    then generate and build the quotient's kernels for its three feature
    sets from an empty build directory (the cold compile), and load them
    once more in a fresh process (the warm load); print each part's
-   registers, spills and SASS instructions;
+   stages, global column reads a point, shared memory, registers,
+   spills and SASS instructions, and each quotient helper's instructions
+   (the quotient's operation bound);
 3. hold each kernel entry point against its plain torch version on the
    card, for exact equality, at the main path's shapes (timed with CUDA
    events, beside the least time the card could take) and at a few more
@@ -60,7 +62,7 @@ path):
    port's verifier must accept them with the program, the interpreter's
    and every prover kernel must have been launched, and the NTT family
    must launch nothing but ``cm31_ntt``; no prove may compile a
-   quotient part (one build serves every proof of a feature set);
+   quotient kernel (one build serves every proof of a feature set);
 8. the CLI as a user runs it, in subprocesses of ``python3 -m
    zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with both
    engines (native: the reference's line and exit code at a cycle limit;
@@ -136,6 +138,7 @@ KERNELS = {
 QUOTIENT_SETS = {"main path": (True,) * 6,
                  "range_lookup, no program": (True,) * 5 + (False,),
                  "range_lookup=False": (False,) * 6}
+QUOTIENT_LOG_BLOWUP = 2      # FriConfig()'s, and every golden's
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
 # to the interpreter's Poseidon2 syscalls.
 MAIN_PATH_KERNELS = [k for k in KERNELS if k != "p2_permute"]
@@ -1053,17 +1056,22 @@ def phase_quotient_build() -> dict:
     """Generate and build the quotient's kernels for its three feature
     sets from an empty build directory (every part at once, one nvcc
     each), then time their load in a fresh process with the libraries
-    built; each part's registers, spills (``-Xptxas -v``) and SASS
-    instructions (``tools/sass_count.py``)."""
+    built; each part's stages, global column reads a
+    point (the staging plan's copies and the 1/Z rows), shared memory,
+    registers, spills (``-Xptxas -v``) and SASS instructions
+    (``tools/sass_count.py``); and each helper's instructions, which the
+    operation bound counts."""
     import shutil
 
     from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.prover import quotient_codegen as qc
-    from zkir_tpu_torch.tools.sass_count import instructions
+    from zkir_tpu_torch.tools.sass_count import (helper_instructions,
+                                                 instructions)
 
+    keys = [(f, QUOTIENT_LOG_BLOWUP) for f in QUOTIENT_SETS.values()]
     shutil.rmtree(qc.BUILD, ignore_errors=True)
     t0 = time.perf_counter()
-    qc.prepare(*QUOTIENT_SETS.values())
+    qc.prepare(*keys)
     cold = time.perf_counter() - t0
     code = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); "
             "from zkir_tpu_torch.prover import quotient_codegen as qc; "
@@ -1071,15 +1079,15 @@ def phase_quotient_build() -> dict:
             "print(time.perf_counter() - t0, qc.compiles)")
     res = subprocess.run(
         [sys.executable, "-c", code, str(ROOT),
-         json.dumps([list(f) for f in QUOTIENT_SETS.values()])],
+         json.dumps([[list(f), b] for f, b in keys])],
         capture_output=True, text=True, check=True, timeout=600)
     warm, recompiled = res.stdout.split()
     if int(recompiled):
         raise AssertionError(f"the warm load compiled {recompiled} parts")
     cuobjdump = pathlib.Path(_kernels._nvcc()).parent / "cuobjdump"
     parts = {}
-    for name, features in QUOTIENT_SETS.items():
-        kernel = qc.prepare(features)[0]
+    for name, key in zip(QUOTIENT_SETS, keys):
+        kernel = qc.prepare(key)[0]
         rows = []
         for part in kernel.parts:
             base = qc.BUILD / f"part_{part.key}"
@@ -1091,22 +1099,33 @@ def phase_quotient_build() -> dict:
             sass.write_text(subprocess.run(
                 [str(cuobjdump), "-sass", str(base.with_suffix(".so"))],
                 capture_output=True, text=True, check=True).stdout)
+            span = qc.TILE + (1 << QUOTIENT_LOG_BLOWUP)
             rows.append({
-                "terms": [part.lo, part.hi], "m31_ops": part.n_ops,
-                "columns": len(part.leaves), "registers": int(regs[1]),
+                "terms": [part.lo, part.hi], "stages": len(part.stages),
+                "m31_ops": part.n_ops, "reads": part.reads,
+                "slots": part.staging.slots,
+                "smem_bytes": 4 * span * part.staging.slots,
+                "registers": int(regs[1]),
                 "spill_stores": int(spill[1]), "spill_loads": int(spill[2]),
                 "sass": len(instructions(sass, "quotient_part_kernel"))})
         parts[name] = rows
-        log(f"quotient {name}: {len(rows)} parts; terms, registers, "
-            f"spills (bytes stored/loaded), SASS instructions: "
-            + "; ".join(f"{r['terms']} {r['registers']} "
-                        f"{r['spill_stores']}/{r['spill_loads']} {r['sass']}"
+        log(f"quotient {name}: {len(rows)} parts, a launch each, "
+            f"{sum(r['reads'] for r in rows)} global column reads a point; "
+            f"each part's terms, stages, registers, spills (bytes "
+            f"stored/loaded), shared memory, SASS instructions: "
+            + "; ".join(f"{r['terms']} {r['stages']} "
+                        f"{r['registers']} {r['spill_stores']}/"
+                        f"{r['spill_loads']} {r['smem_bytes']} {r['sass']}"
                         for r in rows))
+    helpers = helper_instructions(_kernels._nvcc(), _kernels.CSRC,
+                                  qc.BUILD / "helpers")
+    log(f"quotient helpers' instructions a call: {helpers}")
     log(f"quotient kernels: {qc.compiles} parts compiled from an empty "
         f"build directory in {cold:.1f} s; loaded in a fresh process with "
         f"the libraries built in {float(warm):.2f} s")
     return {"cold_build_s": cold, "warm_load_s": float(warm),
-            "compiled": qc.compiles, "parts": parts}
+            "compiled": qc.compiles, "parts": parts,
+            "helper_instructions": helpers}
 
 
 @contextlib.contextmanager
@@ -1137,15 +1156,29 @@ def quotient_bytes(kernel, n: int) -> int:
     return 8 * n * (len(kernel.rec.alg.leaves) + 2 * len(tags) + 4)
 
 
+def quotient_ops(kernel, helpers) -> float:
+    """The integer instructions one point of the quotient needs whatever
+    the kernel's design: each helper call of
+    ``quotient_codegen.operation_counts`` (every M31 node once, one
+    accumulation a term, one division a tag, one store) at its
+    instructions in a probe built from the headers
+    (``tools/sass_count.py helper_instructions``)."""
+    from zkir_tpu_torch.prover import quotient_codegen as qc
+
+    return sum(n * helpers[name]
+               for name, n in qc.operation_counts(kernel.rec).items())
+
+
 def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
     """The generated quotient kernels against the plain ``VecAlg`` path on
     the same card tensors, all four QM31 words at every point.  One
-    evaluation must launch one ``quotient_part`` per part and nothing
-    else.  Bound: ``quotient_bytes`` at the memory rate, or the parts'
-    SASS instructions (straight-line code) per point at the card's
-    instruction rate.  The parts' re-reads of the columns they share are
-    a cost of the split, not of the function: ``split_bytes_ms`` reports
-    them apart."""
+    evaluation must launch one ``quotient_part`` per part, and nothing
+    else.  Bound: ``quotient_bytes`` at the memory rate, or
+    ``quotient_ops`` a point at the card's instruction rate.  The
+    parts' re-reads of the columns they share, by the staging plan, are a
+    cost of the design, not of the function: ``plan_bytes_ms`` reports
+    them apart, and ``sass_ms`` the parts' own SASS a point at the
+    instruction rate."""
     import torch
 
     from zkir_tpu_torch import _kernels
@@ -1153,7 +1186,9 @@ def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
     from zkir_tpu_torch.prover import quotient_codegen as qc
 
     args, kwargs = call
-    kernel = qc.prepare(qc.features_of(kwargs))[0]
+    if args[3] != QUOTIENT_LOG_BLOWUP:
+        raise AssertionError(f"quotient of {what}: log_blowup {args[3]}")
+    kernel = qc.prepare((qc.features_of(kwargs), args[3]))[0]
     torch.cuda.synchronize()
     _kernels.reset_launches()
     cs.quotient_evals(*args, **kwargs)
@@ -1165,32 +1200,52 @@ def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
     n = args[0].shape[1]
     name = next(k for k, f in QUOTIENT_SETS.items() if f == kernel.features)
     rows = quotient_stats["parts"][name]
-    columns = sum(len(p.leaves) + 2 * len({t for t, _ in
-                                           kernel.rec.terms[p.lo:p.hi]})
-                  for p in kernel.parts)
+    reads = sum(p.reads for p in kernel.parts)
+    ops = quotient_ops(kernel, quotient_stats["helper_instructions"])
     compare("quotient_part", lambda: cs.quotient_evals(*args, **kwargs),
             lambda: cs.quotient_evals_plain(*args, **kwargs), 10, results,
             plain_iters=2, key=key or f"quotient_part {what}",
-            bounds=bound(quotient_bytes(kernel, n),
-                         n * sum(r["sass"] for r in rows)))
+            bounds=bound(quotient_bytes(kernel, n), n * ops))
     # The wrapper's two halves apart: the host's table (alpha powers,
-    # challenge words, column addresses) and the parts' launches alone.
+    # challenge words, column addresses), each piece beside the plain way
+    # (a Python loop of QM31 products; the scalar program interpreted),
+    # and the parts' launches alone.
     A, keys = cs._vec_alg(args[0], args[1], args[3], **kwargs)
-    table_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        tab, offsets = kernel.table(A, keys, args[5])
-        table_s.append(time.perf_counter() - t0)
+    alpha, n_terms = args[5], len(kernel.rec.terms)
+    inputs = qc.challenge_words(keys)
+
+    def best_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * min(times)
+
+    host = {
+        "host_table_ms": best_ms(lambda: kernel.table(A, keys, alpha)),
+        "alpha_powers_ms": best_ms(lambda: qc.alpha_powers(alpha, n_terms)),
+        "alpha_powers_loop_ms": best_ms(
+            lambda: cs._alpha_powers_np(alpha, n_terms)),
+        "challenge_words_ms": best_ms(lambda: kernel._words(inputs)),
+        "challenge_words_interpreted_ms": best_ms(
+            lambda: kernel.rec.scalars.evaluate(inputs)),
+        "column_addresses_ms": best_ms(lambda: qc._leaf_pointers(
+            A, kernel.leaf_groups, len(kernel.rec.alg.leaves), A.big))}
+    tables = kernel.table(A, keys, alpha)
     dinv = qc._dinv_rows(args[2], args[3], tuple(args[4]), args[0].device)
-    launches_ms = cuda_ms(lambda: kernel.launch(tab, offsets, dinv, n,
-                                                args[3]), 10)
+    launches_ms = cuda_ms(lambda: kernel.launch(tables, dinv, n), 10)
     r = results[key or f"quotient_part {what}"]
-    r.update(points=n, parts=len(kernel.parts), launches=len(kernel.parts),
-             column_reads=columns, split_bytes_ms=8 * n * (columns + 4)
-             / HBM_BYTES_PER_S * 1e3,
-             host_table_ms=1e3 * min(table_s), launches_only_ms=launches_ms)
-    log(f"quotient_part {what}: host table {1e3 * min(table_s):.3f} ms, "
-        f"the {len(kernel.parts)} launches alone {launches_ms:.4f} ms")
+    r.update(points=n, parts=len(kernel.parts),
+             launches=len(kernel.parts),
+             column_reads=reads, ops_per_point=ops,
+             plan_bytes_ms=8 * n * (reads + 4) / HBM_BYTES_PER_S * 1e3,
+             sass_ms=n * sum(row["sass"] for row in rows)
+             / INT_OPS_PER_S * 1e3, launches_only_ms=launches_ms, **host)
+    log(f"quotient_part {what}: host table {host['host_table_ms']:.3f} ms "
+        f"({host}), the {len(kernel.parts)} launches alone "
+        f"{launches_ms:.4f} ms; {reads} global column reads a point, "
+        f"{ops:.0f} instructions a point by the recording")
 
 
 def phase_goldens(results, quotient_stats) -> None:

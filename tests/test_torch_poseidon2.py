@@ -156,10 +156,18 @@ def test_grind_without_a_device_refuses(bits):
 
 def test_params_from_reference():
     external, internal, dm1 = rp._params_np()
-    got = poseidon2_params_from_reference(external, internal, dm1)
+    got = poseidon2_params_from_reference(external, internal, dm1,
+                                          device="cpu")
     for g, w in zip(got, (external, internal, dm1)):
         np.testing.assert_array_equal(host(g), w)
     bad = internal.copy()
     bad[3] ^= 1
     with pytest.raises(ValueError):
-        poseidon2_params_from_reference(external, bad, dm1)
+        poseidon2_params_from_reference(external, bad, dm1, device="cpu")
+
+
+def test_params_from_reference_needs_a_device():
+    """No CPU default: the caller names the device, as for
+    ``machine_state_from_reference``."""
+    with pytest.raises(TypeError, match="device"):
+        poseidon2_params_from_reference(*rp._params_np())

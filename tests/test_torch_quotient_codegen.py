@@ -4,14 +4,15 @@ tolerance 0.
 The CUDA kernels build only on a machine with a GPU (``chip_smoke.py``
 holds them against the plain version there).  Here the generated text and
 the device helpers it calls (``csrc/m31.cuh``, ``csrc/quotient.cuh``) are
-translated statement by statement into Python and run over the same table
-of column addresses, challenge words and alpha powers that a launch
-reads; a statement the translation does not know fails.  The result must
-equal the port's ``VecAlg`` quotient and the reference's
+translated statement by statement into Python and run, a CTA at a time,
+over the same tables of column addresses, challenge words and alpha
+powers that a launch reads, with the asynchronous copies into shared
+memory modelled; a statement the translation does not know fails.  The
+result must equal the port's ``VecAlg`` quotient and the reference's
 ``quotient_evals`` (eager on the CPU, as the reference's tests run it)
-word for word, and broken copies of the text or a helper must not.
-Inputs are random words from a numpy seed on a 32-point domain (log_n =
-3, log_blowup = 2).
+word for word, and broken copies of the text, a helper or the staging
+plan must not.  Inputs are random words from a numpy seed on a 32-point
+domain (log_n = 3, log_blowup = 2), in tiles of 16 points.
 """
 
 import functools
@@ -104,13 +105,23 @@ def _port(inputs):
 # ----------------------------------------------------------------------------
 # The device code as Python: the generated text and the helpers it calls
 # (csrc/m31.cuh, csrc/quotient.cuh) translated statement by statement and
-# run on numpy int64 words, every point at once.  A statement the
+# run on numpy int64 words, a CTA at a time with its threads as one vector.
+# The staging primitives (cp.async, its groups and waits) are modelled: a
+# copy poisons its destination when it is issued and lands when a wait
+# covers its group, so a slot read before its copy landed, or overwritten
+# while a stage still reads it, gives wrong words.  A statement the
 # translation does not know fails the test.
 # ----------------------------------------------------------------------------
 
+POISON = 0x5A5A5A5A
+TEST_TILE = 16          # two CTAs over the 32-point domain: the last wraps
+_LIVE = [None]          # the threads not yet returned, or None: all
+
 
 class Ptr:
-    """A device pointer: a flat int64 array and an offset in words."""
+    """A device pointer: a flat int64 array and an offset in words (one
+    per thread, or one for all).  Once threads have returned, reads give
+    them 0 and writes skip them."""
 
     def __init__(self, a, at=0):
         self.a, self.at = a.reshape(-1), at
@@ -118,11 +129,26 @@ class Ptr:
     def __add__(self, k):
         return Ptr(self.a, self.at + k)
 
+    def _masked(self, idx):
+        live = _LIVE[0]
+        if live is None or np.ndim(idx) == 0:
+            return None
+        return live
+
     def __getitem__(self, idx):
-        return self.a[self.at + idx]
+        live = self._masked(idx)
+        if live is None:
+            return self.a[self.at + idx]
+        out = np.zeros(len(live), dtype=self.a.dtype)
+        out[live] = self.a[(self.at + idx)[live]]
+        return out
 
     def __setitem__(self, idx, v):
-        self.a[self.at + idx] = v
+        live = self._masked(idx)
+        if live is None:
+            self.a[self.at + idx] = v
+        else:
+            self.a[(self.at + idx)[live]] = np.broadcast_to(v, live.shape)[live]
 
 
 class Qacc:
@@ -130,17 +156,65 @@ class Qacc:
         self.a = self.b = (0, 0)
 
 
+class Copies:
+    """cp.async as the kernel's threads see it: ``cp4`` poisons the
+    destination at once and queues the word; ``commit`` closes a group;
+    ``wait(n)`` lands every group but the ``n`` most recent."""
+
+    def __init__(self):
+        self.groups, self.open = [], []
+
+    def cp4(self, dst, src, pred):
+        pred = np.broadcast_to(pred, np.shape(dst.at))
+        if _LIVE[0] is not None:
+            pred = pred & _LIVE[0]
+        to = dst.at[pred]
+        words = src.a[src.at[pred]] & 0xFFFFFFFF
+        dst.a[to] = POISON
+        self.open.append((dst.a, to, words))
+
+    def commit(self):
+        self.groups.append(self.open)
+        self.open = []
+
+    def wait(self, n):
+        while len(self.groups) > n:
+            for a, to, words in self.groups.pop(0):
+                a[to] = words
+
+
 def _u32(x):
     return x & 0xFFFFFFFF
+
+
+def _exit_where(cond):
+    """``if (cond) return;``: those threads run no further statement."""
+    _LIVE[0] = ~cond if _LIVE[0] is None else _LIVE[0] & ~cond
+
+
+_MASKS = []
+
+
+def _mask_push(cond):
+    """``if (cond) {``: the block's statements run on those threads."""
+    _MASKS.append(_LIVE[0])
+    _LIVE[0] = cond if _LIVE[0] is None else _LIVE[0] & cond
+
+
+def _mask_pop():
+    _LIVE[0] = _MASKS.pop()
 
 
 def _sel(c, x, y):
     return np.where(c, x, y) if isinstance(c, np.ndarray) else (x if c else y)
 
 
-_CAST = re.compile(r"\((uint32_t|uint64_t)\)")
-_DECL = re.compile(r"(?:const )?(uint32_t|uint64_t|long long|cm31|qacc) "
+_CAST = re.compile(r"\((uint32_t|uint64_t|long long|int)\)")
+_DECL = re.compile(r"(?:const )?(uint32_t|uint64_t|long long|int|cm31|qacc) "
                    r"(\w+)(\[\d+\])? = (.*);")
+# The staging primitives, modelled by ``Copies``: the only helpers with
+# inline assembly.
+_MODELLED = {"qp_cp4", "qp_commit", "qp_wait"}
 
 
 def _operand_end(e, k):
@@ -176,11 +250,13 @@ def _expr(e):
     """A C expression of the device code as Python."""
     e = re.sub(r"reinterpret_cast<[^>]*>", "", e)
     e = re.sub(r"\b(0x[0-9a-fA-F]+|\d+)u\b", r"\1", e)
+    e = re.sub(r"\btrue\b", "True", e)
     while m := _CAST.search(e):
         end = _operand_end(e, m.end())
         wrap = "_u32" if m[1] == "uint32_t" else ""
         e = f"{e[:m.start()]}{wrap}({e[m.end():end]}){e[end:]}"
     e = e.replace("cm31{", "(").replace("{", "(").replace("}", ")")
+    e = e.replace(" / ", " // ")
     return _ternary(e.replace(".re", "[0]").replace(".im", "[1]"))
 
 
@@ -203,34 +279,52 @@ def _statements(body, returns):
     """Python lines (indented for a function body) for the C body's
     statements; a value of type uint32_t is truncated to 32 bits where it
     is declared, assigned or returned, as C does."""
-    out, depth, types = [], 1, {}
+    out, blocks, types = [], [], {}
 
     def typed(t, e):
         return f"_u32({e})" if t == "uint32_t" else e
 
     for st in _split_statements(body):
-        ind = "    " * depth
-        if st == "#pragma unroll" or re.fullmatch(r"\(void\)\w+;", st):
+        ind = "    " * (1 + blocks.count("for"))
+        if re.fullmatch(r"#pragma unroll( \d+)?|\(void\)\w+;", st):
             continue
-        if st == "}":
-            depth -= 1
-        elif m := re.fullmatch(r"for \(int (\w+) = (\d+); \1 < (\d+); "
+        if st == "{":
+            blocks.append("scope")
+        elif st == "}":
+            if blocks.pop() == "mask":
+                out.append(f"{ind}_mask_pop()")
+        elif m := re.fullmatch(r"for \(int (\w+) = (\d+); \1 < (\w+); "
                                r"\+\+\1\) \{", st):
             out.append(f"{ind}for {m[1]} in range({m[2]}, {m[3]}):")
-            depth += 1
+            blocks.append("for")
+        elif m := re.fullmatch(r"if \((\w+) == nullptr\) \{", st):
+            out.append(f"{ind}if {m[1]} is None:")
+            blocks.append("for")
+        elif m := re.fullmatch(r"if \((t < \w+)\) \{", st):
+            out.append(f"{ind}_mask_push({_expr(m[1])})")
+            blocks.append("mask")
+        elif st == "extern __shared__ uint32_t sm[];":
+            out.append(f"{ind}sm = _shared()")
+        elif m := re.fullmatch(r"qp_wait<(\d+)>\(\);", st):
+            out.append(f"{ind}qp_wait({m[1]})")
+        elif m := re.fullmatch(r"if \((.*)\) return;", st):
+            out.append(f"{ind}_exit_where({_expr(m[1])})")
+        elif st == "return;":
+            out.append(f"{ind}return")
         elif m := re.fullmatch(r"return (.*);", st):
             out.append(f"{ind}return {typed(returns, _expr(m[1]))}")
         elif m := _DECL.fullmatch(st):
             types[m[2]] = None if m[3] else m[1]
             rhs = "Qacc()" if (m[1], m[4]) == ("qacc", "{}") else _expr(m[4])
             out.append(f"{ind}{m[2]} = {typed(types[m[2]], rhs)}")
-        elif m := re.fullmatch(r"([\w.\[\]]+) = (.*);", st):
+        elif m := re.fullmatch(r"([\w.]+(?:\[[^\]]*\])?) = (.*);", st):
             out.append(f"{ind}{_expr(m[1])} = "
                        f"{typed(types.get(m[1]), _expr(m[2]))}")
         elif re.fullmatch(r"\w+\(.*\);", st):
             out.append(ind + _expr(st[:-1]))
         else:
             raise AssertionError(f"untranslated statement: {st!r}")
+    assert not blocks, "unbalanced braces"
     return out
 
 
@@ -239,90 +333,164 @@ def _header_texts():
                  for f in ("m31.cuh", "quotient.cuh"))
 
 
+def _defines(text):
+    return re.findall(r"^#define (\w+) (.+)$", text, re.M)
+
+
 @functools.lru_cache(maxsize=None)
 def _helpers(headers):
-    """Every ``__device__`` function and ``#define`` of the headers'
-    texts, translated."""
-    env = {"_u32": _u32, "_sel": _sel, "Qacc": Qacc, "np": np}
+    """Every ``__device__`` function of the headers' texts, translated
+    into one environment; the staging primitives are ``Copies``'s.  The
+    ``#define``s are bound per launch (``_define``)."""
+    env = {"_u32": _u32, "_sel": _sel, "Qacc": Qacc, "np": np,
+           "_exit_where": _exit_where, "_mask_push": _mask_push,
+           "_mask_pop": _mask_pop}
     for text in headers:
-        for m in re.finditer(r"^#define (\w+) (\S+)$", text, re.M):
-            env[m[1]] = eval(_expr(m[2]))
         found = list(re.finditer(
-            r"^(?:template <int NW>\n)?__device__ __forceinline__ (\w+) "
+            r"^(?:template <[^>]*>\n)?__device__ __forceinline__ (\w+) "
             r"(\w+)\(([^)]*)\) \{\n(.*?)^\}$", text, re.M | re.S))
         assert len(found) == text.count("__device__")
         for m in found:
             returns, name, params, body = m.groups()
-            args = [re.findall(r"\w+", p)[-1] for p in params.split(",")]
+            assert (name in _MODELLED) == ("asm" in body), name
+            if name in _MODELLED:
+                continue
+            args = [re.findall(r"\w+", p)[-1]
+                    for p in re.sub(r"<[^>]*>", "", params).split(",")]
             exec("\n".join([f"def {name}({', '.join(args)}):",
                             *_statements(body, returns)]), env)
     return env
 
 
+def _define(env, headers, defines):
+    """A launch's ``#define``s, then the headers' (which use them)."""
+    for name, value in defines:
+        env[name] = eval(_expr(value), env)
+    for text in headers:
+        for name, value in _defines(text):
+            env[name] = eval(_expr(value), env)
+
+
 _PART = re.compile(
-    r"(?:// .*\n)+#include \"quotient\.cuh\"\n\n"
-    r"typedef qp_table<(\d+)> table_t;\n\n"
-    r"extern \"C\" __global__ void __launch_bounds__\((\d+), \d+\)\n"
+    r"(?:// [^\n]*\n)+((?:#define \w+ \d+\n)+)#include \"quotient\.cuh\"\n\n"
+    r"typedef qp_table<(\d+), (\d+)> table_t;\n\n"
+    r"extern \"C\" __global__ void __launch_bounds__\(QP_TILE, \d+\)\n"
     r"quotient_part_kernel\(const __grid_constant__ table_t tab,\n"
     r" +const int64_t\* __restrict__ dinv,\n"
-    r" +int64_t\* __restrict__ out, long long n,\n"
-    r" +long long shift, int accumulate\) \{\n"
-    r"    const long long i = \(long long\)blockIdx\.x \* blockDim\.x "
-    r"\+ threadIdx\.x;\n"
-    r"    if \(i >= n\) return;\n"
+    r" +uint32_t\* __restrict__ partial,\n"
+    r" +int64_t\* __restrict__ out, int part, long long n\) \{\n"
     r"(.*?)\n\}\n\n"
-    r"extern \"C\" int quotient_part\(const int64_t\* table, "
-    r"const int64_t\* dinv, int64_t\* out,\n"
-    r" +long long n, long long shift, int accumulate,\n"
+    r"extern \"C\" int quotient_part\(const int64_t\* cols, "
+    r"const uint32_t\* words,\n"
+    r" +const int64_t\* dinv, uint32_t\* partial,\n"
+    r" +int64_t\* out, int part, long long n,\n"
     r" +cudaStream_t stream\) \{\n"
     r"    table_t tab;\n"
-    r"    memcpy\(tab\.w, table, sizeof tab\.w\);\n"
-    r"    quotient_part_kernel<<<\(unsigned\)\(\(n \+ (\d+)\) / (\d+)\), "
-    r"(\d+), 0, stream>>>\(\n"
-    r"        tab, dinv, out, n, shift, accumulate\);\n"
+    r"    memcpy\(tab\.c, cols, sizeof tab\.c\);\n"
+    r"    memcpy\(tab\.w, words, sizeof tab\.w\);\n"
+    r"    const int smem = QP_SLOTS \* QP_SPAN \* 4;\n"
+    r"    const cudaError_t err = cudaFuncSetAttribute\(\n"
+    r"        quotient_part_kernel, "
+    r"cudaFuncAttributeMaxDynamicSharedMemorySize, smem\);\n"
+    r"    if \(err != cudaSuccess\) return \(int\)err;\n"
+    r"    quotient_part_kernel<<<\(unsigned\)\(\(n \+ QP_TILE - 1\) / "
+    r"QP_TILE\), QP_TILE, smem,\n"
+    r" +stream>>>\(tab, dinv, partial, out, part, n\);\n"
     r"    return \(int\)cudaGetLastError\(\);\n\}\n", re.S)
 
 
 @functools.lru_cache(maxsize=None)
 def _part_fn(text, headers):
-    """A part's kernel as a Python function of (tab, dinv, out, n, shift,
-    accumulate) over every point, and its table's size in words."""
+    """A part's table size (column pointers, words) and its kernel as a
+    Python function of (tab, dinv, partial, out, part, n) over one CTA's
+    threads, in the environment of its helpers."""
     m = _PART.fullmatch(text)
     assert m, "not the layout of a quotient part"
-    words, threads = int(m[1]), int(m[2])
-    assert int(m[4]) + 1 == int(m[5]) == int(m[6]) == threads
-    env = dict(_helpers(headers))
-    exec("\n".join(["def kernel(tab, dinv, out, n, shift, accumulate):",
-                    "    i = np.arange(n)",
-                    *_statements(m[3], "void")]), env)
-    return words, env["kernel"]
+    env = _helpers(headers)
+    exec("\n".join(["def kernel(tab, dinv, partial, out, part, n):",
+                    *_statements(m[4], "void")]), env)
+    kernel = env["kernel"]
+    _define(env, headers, _defines(m[1]))
+    return int(m[2]), int(m[3]), kernel, tuple(_defines(m[1]))
+
+
+def _run(kernel, grid, threads, args):
+    """A launch: every CTA of the grid in turn, its threads as one
+    vector."""
+    env = kernel.__globals__
+    for block in range(grid):
+        env.update(blockIdx=types.SimpleNamespace(x=block),
+                   threadIdx=types.SimpleNamespace(x=np.arange(threads)))
+        _LIVE[0] = None
+        try:
+            kernel(*args)
+        finally:
+            _LIVE[0] = None
+
+
+def _launch(text, headers, tab, dinv, partial, out, part, n):
+    """A part's launch: a CTA a tile, each with fresh (poisoned) shared
+    memory, one slot more than it asks for so that a read past its slots
+    gives poison, not an index error."""
+    _, _, kernel, defines = _part_fn(text, headers)
+    env = kernel.__globals__
+    _define(env, headers, defines)
+    tile, span, slots = env["QP_TILE"], env["QP_SPAN"], env["QP_SLOTS"]
+
+    def shared():
+        copies = Copies()
+        env.update(qp_cp4=copies.cp4, qp_commit=copies.commit,
+                   qp_wait=copies.wait)
+        return Ptr(np.full((slots + 1) * span, POISON, dtype=np.int64))
+
+    env.update(_shared=shared, __syncthreads=lambda: None)
+    _run(kernel, (n + tile - 1) // tile, tile,
+         (tab, dinv, partial, out, part, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(features):
+    return qc.plan(features, LOG_BLOWUP)
+
+
+def _small_tile(text, tile=TEST_TILE):
+    """A part's text with a tile of ``tile`` points: the same stages,
+    plan and table, over fewer threads."""
+    line = f"#define QP_TILE {qc.TILE}\n"
+    assert text.count(line) == 1
+    return text.replace(line, f"#define QP_TILE {tile}\n")
 
 
 def _generated(features, inputs, edit=lambda text: text,
-               headers=None):
-    """The quotient by the generated parts' text, as a launch computes it:
-    the table a launch reads, each part run in order into an output that
-    starts as garbage (``torch.empty``).  ``edit`` changes each part's
-    text and ``headers`` the headers' before they are run."""
+               headers=None, kernel=None, tile=TEST_TILE):
+    """The quotient by the generated parts' text, as their launches
+    compute it: the tables a launch reads, each part run in order over
+    every CTA, into partial sums and an output that start as garbage
+    (``torch.empty``).
+    ``edit`` changes each part's text and ``headers`` the headers' before
+    they are run; the parts run with a tile of ``tile`` points."""
     ext_r, ext_i, args, alpha = _port(inputs)
-    kernel = qc.plan(features)
+    kernel = kernel or _plan(features)
     A, keys = cs._vec_alg(ext_r, ext_i, LOG_BLOWUP, **args)
-    tab, offsets = kernel.table(A, keys, alpha)
+    tables = kernel.table(A, keys, alpha)
     column = {}
     for accessor, arg, comp in kernel.rec.alg.leaves:
         t = getattr(A, accessor)(*arg)[comp]
         column[t.data_ptr()] = t.numpy()
     dinv = qc._dinv_rows(LOG_N, LOG_BLOWUP, _coset_shift(),
                          torch.device("cpu")).numpy()
+    last = len(kernel.parts) - 1
+    partial = np.full((last, 4, N), 12345, dtype=np.int64)
     out = np.full((4, N), 12345, dtype=np.int64)
-    ends = [*offsets[1:], len(tab)]
-    for k, (part, off) in enumerate(zip(kernel.parts, offsets)):
-        words, fn = _part_fn(edit(part.text), headers or _header_texts())
-        assert off + words == ends[k]
-        w = [Ptr(column[int(x)]) if int(x) in column else int(x)
-             for x in tab[off:off + words]]
-        fn(types.SimpleNamespace(w=w), Ptr(dinv), Ptr(out), N,
-           1 << LOG_BLOWUP, int(k > 0))
+    headers = headers or _header_texts()
+    for k, (part, (cols, words)) in enumerate(zip(kernel.parts, tables)):
+        text = _small_tile(edit(part.text), tile)
+        n_cols, n_words, _, _ = _part_fn(text, headers)
+        assert (len(cols), len(words)) == (n_cols, n_words)
+        tab = types.SimpleNamespace(c=[Ptr(column[int(x)]) for x in cols],
+                                    w=[int(x) for x in words])
+        _launch(text, headers, tab, Ptr(dinv), Ptr(partial),
+                Ptr(out) if k == last else None, k, N)
     return tuple(torch.from_numpy(out))
 
 
@@ -386,31 +554,61 @@ def test_generated_source_equals_both_quotients(reference_terms, name):
     _equal(got, _reference(reference_terms, FEATURE_SETS[name]))
 
 
+def test_a_tile_wider_than_the_domain():
+    """The production tile (128 points) over the 32-point domain: one CTA
+    whose copies wrap three times and whose threads past the domain store
+    nothing."""
+    inputs = _inputs(OFF, SEED)
+    _equal(_generated(OFF, inputs, tile=qc.TILE), _plain(inputs))
+
+
+def _slot_freed_a_stage_early(monkeypatch):
+    """A broken copy of ``staging_plan``: a slot goes to a new column one
+    stage before the stage that last reads the old one has passed."""
+    import inspect
+
+    src = inspect.getsource(qc.staging_plan)
+    assert src.count("busy[0][0] < start") == 1
+    env = dict(vars(qc))
+    exec(src.replace("busy[0][0] < start", "busy[0][0] < start + 2"), env)
+    monkeypatch.setattr(qc, "staging_plan", env["staging_plan"])
+
+
 _BROKEN = {
-    # (edit of each part's text, (header, old, new) or None)
-    "next row moved": (lambda t: t.replace("(i + shift) & (n - 1)",
-                                           "(i + shift + 1) & (n - 1)"), None),
+    # (edit of each part's text, (header, old, new) or None, plan edit)
+    "next row moved": (lambda t: t.replace("+ QP_SHIFT + t]",
+                                           "+ QP_SHIFT + 1 + t]"), None, None),
     "dotn adds": (None, ("quotient.cuh", "(uint64_t)(M31_P - c) * d",
-                         "(uint64_t)c * d")),
-    "first part adds": (None, ("quotient.cuh", "accumulate ? m31_add(",
-                               "1 ? m31_add(")),
+                         "(uint64_t)c * d"), None),
+    "first part left out": (None, ("quotient.cuh", "int p = 0; p < part",
+                                   "int p = 1; p < part"), None),
+    "halo one point short": (None, ("quotient.cuh",
+                                    "#define QP_SPAN (QP_TILE + QP_SHIFT)",
+                                    "#define QP_SPAN (QP_TILE + QP_SHIFT - 1)"),
+                             None),
+    "slot freed a stage early": (None, None, _slot_freed_a_stage_early),
 }
 
 
 @pytest.mark.parametrize("broken", sorted(_BROKEN))
-def test_the_translation_runs_the_code_as_written(broken):
+def test_the_translation_runs_the_code_as_written(broken, monkeypatch):
     """The CPU check sees what the device code says: a broken copy of a
-    part's text or of a header helper gives other words than the plain
-    version's."""
-    edit, header = _BROKEN[broken]
+    part's text, of a header helper or of the staging plan gives other
+    words than the plain version's."""
+    edit, header, plan_edit = _BROKEN[broken]
     headers = _header_texts()
     if header:
         k = ("m31.cuh", "quotient.cuh").index(header[0])
         assert headers[k].count(header[1]) == 1
         headers = (*headers[:k], headers[k].replace(*header[1:]),
                    *headers[k + 1:])
+    kernel = None
+    if plan_edit:
+        plan_edit(monkeypatch)
+        kernel = qc.plan(OFF, LOG_BLOWUP)
+        assert any(_plan_faults(p) for p in kernel.parts)
     inputs = _inputs(OFF, SEED)
-    got = _generated(OFF, inputs, edit or (lambda t: t), headers)
+    got = _generated(OFF, inputs, edit or (lambda t: t), headers, kernel)
     want = _plain(inputs)
     assert any(not torch.equal(g, w) for g, w in zip(got, want))
 
@@ -418,37 +616,120 @@ def test_the_translation_runs_the_code_as_written(broken):
 def test_the_translation_refuses_an_unknown_statement():
     with pytest.raises(AssertionError, match="untranslated statement"):
         _generated(OFF, _inputs(OFF, SEED),
-                   lambda t: t.replace("(void)shift;", 'asm volatile("");'))
+                   lambda t: t.replace("qp_commit();", 'asm volatile("");', 1))
+
+
+def _plan_faults(part):
+    """The staging plan's faults, found by replaying it in time order: a
+    copy lands in its slot at its issue time (2 s - 1, while stage s - 1
+    computes); stage s reads at 2 s + 1.  A
+    stage must find each column it reads in the slot the plan names, put
+    there before it by a copy that nothing overwrote since."""
+    staging = part.staging
+    writes = sorted((2 * s - 1, slot, leaf)
+                    for s, copies in enumerate(staging.copies)
+                    for slot, leaf in copies)
+    faults, held, k = [], {}, 0
+    for s, stage in enumerate(part.stages):
+        while k < len(writes) and writes[k][0] <= 2 * s + 1:
+            held[writes[k][1]] = writes[k][2]
+            k += 1
+        if set(staging.slot_of[s]) != stage.leaves:
+            faults.append((s, "columns"))
+        for leaf, slot in staging.slot_of[s].items():
+            if held.get(slot) != leaf:
+                faults.append((s, leaf, slot))
+    if staging.slots > qc.n_slots(1 << LOG_BLOWUP):
+        faults.append(("slots", staging.slots))
+    return faults
+
+
+@pytest.mark.parametrize("name", sorted(FEATURE_SETS))
+def test_the_staging_plan_holds_every_read(name):
+    """Every column a stage reads is in its slot before the stage, no slot
+    is overwritten while a later stage still reads it, the plan fits the
+    CTA's slots, and the global column reads a point (the copies and the
+    1/Z rows) are fewer than the 4,504 of one launch per part with every
+    part reading its columns itself (37 parts on the main path)."""
+    kernel = _plan(FEATURE_SETS[name])
+    for part in kernel.parts:
+        assert _plan_faults(part) == []
+        assert [s.lo for s in part.stages[1:]] == [s.hi for s in
+                                                   part.stages[:-1]]
+    assert sum(p.reads for p in kernel.parts) <= 4504
+    assert len(kernel.parts) < 37
+
+
+def test_the_halo_covers_the_next_row_reads():
+    """A slot holds the tile's points and the next trace row's: word k of
+    the copy for the tile at ``base`` is point (base + k) mod n, for every
+    k a thread reads (t and t + QP_SHIFT), the last tile wrapping to point
+    0; the header's ``qp_copy`` and ``qp_halo`` run through the copy
+    model."""
+    text = _small_tile(_plan(OFF).parts[0].text)
+    _, _, kernel, defines = _part_fn(text, _header_texts())
+    env = kernel.__globals__
+    _define(env, _header_texts(), defines)
+    tile, shift, span = env["QP_TILE"], env["QP_SHIFT"], env["QP_SPAN"]
+    column = np.arange(N, dtype=np.int64) * 7 + 3
+    for base in range(0, N, tile):
+        copies = Copies()
+        env["qp_cp4"], env["qp_commit"] = copies.cp4, copies.commit
+        slot = Ptr(np.full(span + 1, POISON, dtype=np.int64))
+        env["qp_copy"](slot, Ptr(column), base, N, np.arange(tile))
+        env["qp_halo"](slot, Ptr(column), base, N, np.arange(tile))
+        copies.commit()
+        copies.wait(0)
+        reads = np.concatenate([np.arange(tile), np.arange(tile) + shift])
+        assert np.array_equal(slot.a[reads], column[(base + reads) % N])
+
+
+def test_alpha_powers_are_the_plain_loops():
+    """The wrapper's alpha powers (by doubling, vectorised) are
+    ``_alpha_powers_np``'s words, word for word."""
+    rng = np.random.default_rng(SEED)
+    for n_terms in (1, 2, 3, 5, 721, 887):
+        alpha = tuple(int(x) for x in rng.integers(0, P, 4))
+        assert np.array_equal(qc.alpha_powers(alpha, n_terms),
+                              cs._alpha_powers_np(alpha, n_terms))
 
 
 @pytest.mark.parametrize("name", sorted(FEATURE_SETS))
 def test_recorded_terms_are_quotient_terms(name):
     """The recording holds ``quotient_terms``'s terms on ``VecAlg``: the
     same count (721 without ``range_lookup``, 887 with every argument and
-    the program), the same divisor tags and widths, in order."""
+    the program), the same divisor tags and widths, in order; the stages
+    and parts cover them in order."""
     ext_r, ext_i, args, _ = _port(_inputs(FEATURE_SETS[name], SEED))
     _, terms = cs._vec_terms(ext_r, ext_i, LOG_BLOWUP, **args)
     rec = qc.record(FEATURE_SETS[name])
     assert [(t, len(c)) for t, c in rec.terms] == \
         [(t, len(c)) for t, c in terms]
     assert len(terms) == {"off": 721, "on": 884, "program": 887}[name]
-    parts = qc.split(rec)
+    parts = [(p.lo, p.hi) for p in _plan(FEATURE_SETS[name]).parts]
     assert parts[0][0] == 0 and parts[-1][1] == len(terms)
     assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    counts = qc.operation_counts(rec)
+    nodes = [n for n in rec.alg.nodes if n[0] in qc._C_OPS]
+    assert sum(counts[f] for f in qc._C_OPS.values()) == len(nodes)
+    assert counts["qp_acc2"] + counts["qp_acc4"] <= len(terms)
 
 
 def test_source_does_not_depend_on_the_challenges():
     """One text serves every proof: recording again gives the same text,
     and two challenge sets give two tables and two quotients, each equal
     to the plain version's."""
-    texts = [p.text for p in qc.plan(BOUND).parts]
+    kernel = _plan(BOUND)
     again = qc.record.__wrapped__(BOUND)
-    assert [qc.part_source(again, lo, hi).text
-            for lo, hi in qc.split(again)] == texts
+    slots = qc.n_slots(1 << LOG_BLOWUP)
+    assert [qc.make_part(again, qc.cut_stages(again, lo, hi), slots,
+                         LOG_BLOWUP).text
+            for lo, hi in qc.cut_parts(again, slots)] == \
+        [p.text for p in kernel.parts]
     tables = []
     for seed in (SEED, SEED + 1):
         inputs = _inputs(BOUND, seed)
-        _equal(_generated(BOUND, inputs), _plain(inputs))
+        _equal(_generated(BOUND, inputs, kernel=kernel), _plain(inputs))
         ext_r, ext_i, args, alpha = _port(inputs)
         A, keys = cs._vec_alg(ext_r, ext_i, LOG_BLOWUP, **args)
         words = qc.record(BOUND).scalars.evaluate(qc.challenge_words(keys))
@@ -459,7 +740,8 @@ def test_source_does_not_depend_on_the_challenges():
 def test_scalar_program_computes_the_host_arithmetic():
     """The words the program gives are those the constraint code computes
     from concrete challenges: eta^2 and delta^5 as ``qm31_mul_scalar``
-    makes them, and the entry point's 20-bit limbs."""
+    makes them, and the entry point's 20-bit limbs; its compiled form
+    gives ``evaluate``'s words."""
     rng = np.random.default_rng(SEED)
     eta, delta = (tuple(int(x) for x in rng.integers(0, P, 4))
                   for _ in range(2))
@@ -475,6 +757,8 @@ def test_scalar_program_computes_the_host_arithmetic():
         list(qm31_mul_scalar(eta, eta))
     assert [vals[x.id] if isinstance(x, qc.Sym) else x for x in d5] == \
         list(want5)
+    wanted = [x.id for x in (*e2, *d5) if isinstance(x, qc.Sym)]
+    assert prog.compile(wanted)([*eta, *delta]) == [vals[k] for k in wanted]
     with pytest.raises(TypeError):
         bool(s_eta[0])
     keys = dict(lookup=None, aux=None, memory=None, io=None, crypto=None,
@@ -485,19 +769,20 @@ def test_scalar_program_computes_the_host_arithmetic():
 
 def test_cache_key_follows_the_text():
     """A part's build is named by its text (with the headers and flags):
-    another text, another name; equal terms, equal text and name, so the
+    another text, another name; equal stages, equal text and name, so the
     feature sets share the parts their terms begin with."""
-    parts = {name: qc.plan(f).parts for name, f in FEATURE_SETS.items()}
-    text = parts["program"][0].text
-    assert qc.part_key(text) == parts["program"][0].key
-    next_row = text.replace(", i);", ", j);", 1)      # one read moved
-    assert next_row != text
-    assert qc.part_key(next_row) != qc.part_key(text)
+    parts = {name: _plan(f).parts for name, f in FEATURE_SETS.items()}
+    text = parts["program"][-1].text
+    assert qc.part_key(text) == parts["program"][-1].key
+    this_row = text.replace("+ QP_SHIFT + t]", "+ t]", 1)   # one read moved
+    assert this_row != text
+    assert qc.part_key(this_row) != qc.part_key(text)
     keys = {name: [p.key for p in ps] for name, ps in parts.items()}
-    assert keys["off"][:-1] == keys["on"][:len(keys["off"]) - 1]
+    # Only a feature set's last parts differ.
+    assert keys["off"][:-2] == keys["on"][:len(keys["off"]) - 2]
     assert keys["on"][:-1] == keys["program"][:-1]
-    assert len({k for ks in keys.values() for k in ks}) == \
-        len(keys["program"]) + 2
+    assert len({k for ks in keys.values() for k in ks}) <= \
+        len(keys["program"]) + 3
 
 
 @pytest.mark.parametrize("failure", ["nvcc missing", "nvcc fails"])
@@ -512,6 +797,6 @@ def test_a_failed_build_raises(monkeypatch, tmp_path, failure):
     monkeypatch.setattr(_kernels, "_nvcc", missing if failure == "nvcc missing"
                         else lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc"):
-        qc.prepare(OFF)
+        qc.prepare((OFF, LOG_BLOWUP))
     assert qc._PREPARED == {}
     assert not list(tmp_path.glob("*.so"))

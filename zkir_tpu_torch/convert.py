@@ -24,8 +24,8 @@ def trace_from_reference(path) -> Dict[str, np.ndarray]:
         return {k: f[k] for k in f.files}
 
 
-def poseidon2_params_from_reference(external, internal, dm1,
-                                    device="cpu") -> tuple:
+def poseidon2_params_from_reference(external, internal, dm1, *,
+                                    device) -> tuple:
     """The port's Poseidon2 device constants (external [8, 16], internal
     [14], diag - 1 [16], as int64 tensors on ``device``), after checking
     the arrays of ``zkir_tpu.ops.poseidon2._params_np()`` against the

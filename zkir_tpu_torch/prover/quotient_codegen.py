@@ -21,18 +21,28 @@ that CPU tensors take).
    values and is recorded as a ``ScalarProgram``.  Each proof evaluates
    that program into a table of words, so the generated text is the same
    for every challenge set; the alpha powers are a table too.
-3. The terms are cut into parts of about ``PART_BUDGET`` operations.
-   Each part is one ``__global__`` in its own generated ``.cu``
-   (``csrc/quotient.cuh`` holds its helpers): one thread per point, the
-   part's terms in order, alpha^j C_j summed per divisor tag in registers,
-   each tag's sum times that tag's 1/Z(x), the result added into the
-   [4, N] output.  Parts run in order on the current stream; field
-   addition is exact, so the words equal the plain version's.
-4. Each part's shared library is named by a hash of its text, the headers
-   and the flags, and built under ``zkir_tpu_torch/_build/quotient/`` at
-   first use (all missing parts at once, one ``nvcc`` each); a part's
-   text is a function of its terms alone, so feature sets whose terms
-   begin alike share their first parts.  A failed build or launch raises.
+3. The terms are cut in order into parts of about ``PART_BUDGET``
+   operations (``cut_parts``): straight-line code must stay in an SM's
+   instruction cache, and one kernel of all terms (some 200,000
+   instructions a point) ran at a third of the speed of small parts on
+   the H100 (``PERF.md``).  A CTA owns ``TILE`` consecutive points, one a
+   thread; it computes its part's nodes once each, in order, and sums
+   alpha^j C_j per divisor tag in registers; then each tag's sum times
+   that tag's 1/Z(x) goes to the part's own rows of partial sums, or, in
+   the last part, is added to the earlier parts' sums into the result.
+4. A part's columns are staged in shared memory as 32-bit words, by
+   ``cp.async`` copies: ``cut_stages`` cuts its nodes into stages that
+   each bring ``STAGE_COLUMNS`` new columns, and ``staging_plan`` gives
+   each column a slot from its first stage to its last, issuing the
+   copies for a stage while the stage before computes; a slot is given
+   to a new column only after the stage that last reads the old one has
+   passed its barrier.  Every read of a column is a shared-memory load.
+5. Each part is one kernel and one launch.  Its shared library is named
+   by a hash of its text, the headers and the flags, and built under
+   ``zkir_tpu_torch/_build/quotient/`` at first use (all missing parts at
+   once, one ``nvcc`` each); a part's text is a function of its terms and
+   of the trace's blowup alone, so feature sets whose terms begin alike
+   share their first parts.  A failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import heapq
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -51,15 +62,23 @@ from ..spec.field import M31_PRIME
 P = M31_PRIME
 BUILD = _kernels.BUILD / "quotient"
 NVCC_EXTRA = ("-Xptxas", "-v")
-# Operations (M31 nodes, plus ACC_COST a term) in one part, and
-# __launch_bounds__'s blocks per SM (4 caps a thread at 128 registers):
-# the fastest of the sizes tools/quotient_bench.py times on an H100.
-# Larger parts reach 255 registers and spill; smaller ones re-read more
-# columns.
-PART_BUDGET = 900
+# Points a CTA owns, one a thread.  A CTA's shared-memory slots are the
+# SM's shared memory over MIN_BLOCKS CTAs and the 4-byte words of a slot
+# (219 for a blowup of 4; the widest term reads 208 columns); a part's
+# __launch_bounds__ is the CTAs an SM can hold for its slots, from
+# MIN_BLOCKS to MAX_BLOCKS, which caps the registers so that they fit.
+TILE = 128
+MIN_BLOCKS = 2
+MAX_BLOCKS = 4
+SMEM_PER_SM = 233_472          # H100: 228 KB for the CTAs of an SM
+SMEM_PER_BLOCK = 232_448       # at most 227 KB for one CTA
+SMEM_RESERVED = 1_024          # what the system keeps of each CTA's share
+# M31 operations (nodes, plus ACC_COST a term) in one part; new columns a
+# stage brings.  The fastest of the values tools/quotient_bench.py times
+# on an H100.
+PART_BUDGET = 1_000
+STAGE_COLUMNS = 8
 ACC_COST = 12
-THREADS = 128
-MIN_BLOCKS = 4
 FEATURES = ("lookup", "aux", "memory", "io", "crypto", "program")
 TAG_ROW = {"H": 0, "T": 2, "F": 4, "L": 6}   # rows of the [8, N] 1/Z table
 # M31 nodes: ("imm", v), ("par", sym), ("leaf", leaf, shifted),
@@ -161,6 +180,36 @@ class ScalarProgram:
 
     def _value(self, operand):
         return Sym(self, operand[1]) if operand[0] == "s" else operand[1]
+
+    def compile(self, wanted: List[int]):
+        """A function of the input words that returns the values of the
+        definitions ``wanted`` (``evaluate``'s): straight-line Python over
+        the definitions they depend on, so a proof's table costs no
+        interpretation."""
+        need, stack = set(), list(wanted)
+        while stack:
+            k = stack.pop()
+            if k not in need:
+                need.add(k)
+                stack += [o[1] for o in self.defs[k][1:]
+                          if isinstance(o, tuple) and o[0] == "s"]
+        lines = ["def program(x):"]
+        for k in sorted(need):
+            d = self.defs[k]
+            if d[0] == "in":
+                lines.append(f"    v{k} = x[{d[1]}] % {P}")
+                continue
+            a, b = (f"v{o[1]}" if o[0] == "s" else str(o[1]) for o in d[1:])
+            # Python's integers do not wrap: only products are reduced,
+            # sums and differences once at the end.
+            if d[0] == "mul":
+                lines.append(f"    v{k} = {a} * {b} % {P}")
+            else:
+                lines.append(f"    v{k} = {a} {'+' if d[0] == 'add' else '-'} {b}")
+        lines.append(f"    return [{', '.join(f'v{k} % {P}' for k in wanted)}]")
+        env: Dict[str, object] = {}
+        exec("\n".join(lines), env)
+        return env["program"]
 
     def evaluate(self, inputs) -> List[int]:
         """The value of every definition for these input words."""
@@ -483,18 +532,23 @@ def record(features: Tuple[bool, ...]) -> Recording:
 
 
 # ============================================================================
-# Parts and their source.
+# Stages, parts and the staging plan.
 # ============================================================================
 
 
-class Part(NamedTuple):
-    lo: int                 # terms [lo, hi) of the recording
+def n_slots(shift: int) -> int:
+    """The shared-memory slots of one CTA: its share of the SM's shared
+    memory at ``MIN_BLOCKS`` CTAs, over the 4-byte words of a slot
+    (``TILE + shift``)."""
+    share = min(SMEM_PER_BLOCK, SMEM_PER_SM // MIN_BLOCKS - SMEM_RESERVED)
+    return share // (4 * (TILE + shift))
+
+
+class Stage(NamedTuple):
+    lo: int                 # terms [lo, hi) of the recording, summed here
     hi: int
-    text: str               # the generated .cu
-    leaves: List[int]       # table slot -> leaf id of the recording
-    params: List[int]       # table slot -> scalar-program definition
-    n_ops: int              # M31 operations in the part
-    key: str                # the hash that names its build
+    order: List[int]        # the nodes it computes, each after its operands
+    leaves: frozenset       # the leaf ids (columns) it reads
 
 
 def _needed(alg: RecAlg, roots, seen) -> List[int]:
@@ -520,22 +574,150 @@ def _needed(alg: RecAlg, roots, seen) -> List[int]:
     return order
 
 
-def split(rec: Recording) -> List[Tuple[int, int]]:
+def _leaves_of(alg: RecAlg, order) -> set:
+    return {alg.nodes[x][1] for x in order if alg.nodes[x][0] == "leaf"}
+
+
+def cut_parts(rec: Recording, slots: int) -> List[Tuple[int, int]]:
     """Cut the terms, in order, into ranges of about ``PART_BUDGET``
-    operations: a part's own nodes plus ``ACC_COST`` a term."""
-    bounds, seen, cost = [0], set(), 0
+    operations (a part's own nodes plus ``ACC_COST`` a term) and at most
+    ``slots`` columns: a part's code must stay in an SM's instruction
+    cache, and its columns in a CTA's shared memory."""
+    alg = rec.alg
+    bounds, seen, cost, cols = [0], set(), 0, set()
     for j, (_, comps) in enumerate(rec.terms):
         probe = set(seen)
-        add = len(_needed(rec.alg, comps, probe)) + ACC_COST
-        if cost and cost + add > PART_BUDGET:
+        new = _needed(alg, comps, probe)
+        wide = cols | _leaves_of(alg, new)
+        if cost and (cost + len(new) + ACC_COST > PART_BUDGET
+                     or len(wide) > slots):
             bounds.append(j)
-            seen, cost = set(), 0
-            add = len(_needed(rec.alg, comps, seen)) + ACC_COST
-        else:
-            seen = probe
-        cost += add
+            probe = set()
+            new = _needed(alg, comps, probe)
+            cost, wide = 0, _leaves_of(alg, new)
+        if len(wide) > slots:
+            raise ValueError(f"term {j} reads {len(wide)} columns; a CTA "
+                             f"has {slots} slots")
+        seen, cols = probe, wide
+        cost += len(new) + ACC_COST
     bounds.append(len(rec.terms))
     return list(zip(bounds[:-1], bounds[1:]))
+
+
+def cut_stages(rec: Recording, lo: int, hi: int) -> List[Stage]:
+    """Cut the nodes of terms [lo, hi), each computed once in order, into
+    stages that each bring ``STAGE_COLUMNS`` columns the part has not read
+    before: the copies for a stage are in flight while the stage before
+    computes.  A stage's ``order`` is the nodes it computes (values that a
+    later stage uses stay in registers), its ``leaves`` the columns it
+    reads (from shared memory, at each stage that reads them), and terms
+    [lo, hi) of it are accumulated once their roots are computed."""
+    alg = rec.alg
+    order = [x for x in _needed(alg, [x for _, c in rec.terms[lo:hi]
+                                      for x in c], set())
+             if alg.nodes[x][0] != "leaf"]
+    stages: List[Stage] = []
+    chunk_of: Dict[int, int] = {}
+    refs: List[set] = [set()]
+    nodes: List[List[int]] = [[]]
+    known: set = set()
+    fresh = 0
+    for x in order:
+        node = alg.nodes[x]
+        chunk_of[x] = len(nodes) - 1
+        nodes[-1].append(x)
+        if node[0] == "par":
+            continue
+        for a in node[1:]:
+            if alg.nodes[a][0] == "leaf":
+                refs[-1].add(alg.nodes[a][1])
+                fresh += alg.nodes[a][1] not in known
+                known.add(alg.nodes[a][1])
+        if fresh >= STAGE_COLUMNS:
+            refs.append(set())
+            nodes.append([])
+            fresh = 0
+    last, ends = 0, []
+    for j in range(lo, hi):
+        comps = _term_values(alg, rec.terms[j][1]) or ()
+        at = max([last] + [chunk_of[x] for x in comps if x in chunk_of])
+        for x in comps:
+            if alg.nodes[x][0] == "leaf":
+                refs[at].add(alg.nodes[x][1])
+        ends.append(at)
+        last = at
+    first = lo
+    for k in range(len(nodes)):
+        top = lo + sum(e <= k for e in ends)
+        if nodes[k] or top > first:
+            stages.append(Stage(first, top, nodes[k], frozenset(refs[k])))
+            first = top
+    assert first == hi
+    return stages
+
+
+class Staging(NamedTuple):
+    """Where a part's columns live in shared memory.  Stage s computes at
+    time 2 s + 1, after its barrier; its copies are issued at 2 s - 1,
+    while stage s - 1 computes (stage 0's before it)."""
+    copies: List[List[Tuple[int, int]]]   # stage -> [(slot, leaf)]
+    slot_of: List[Dict[int, int]]         # stage -> {leaf it reads: slot}
+    slots: int                            # slots used
+
+
+def staging_plan(leaf_sets: List[frozenset], slots: int) -> Staging:
+    """Assign the columns each stage reads to slots.  A column is copied
+    once, for its first stage, and stays in its slot until its last: a
+    part's columns all fit the slots (``cut_parts``).  A slot holds one
+    column at a time: it is given to another only from the issue time
+    after the barrier that ends the old column's last stage."""
+    assert len(frozenset().union(*leaf_sets)) <= slots
+    span: Dict[int, List[int]] = {}
+    for s, leaves in enumerate(leaf_sets):
+        for leaf in leaves:
+            span.setdefault(leaf, [s, s])[1] = s
+    free: List[int] = []
+    busy: List[Tuple[int, int]] = []       # (last time read, slot)
+    used = 0
+    copies: List[List[Tuple[int, int]]] = [[] for _ in leaf_sets]
+    slot_of: List[Dict[int, int]] = [{} for _ in leaf_sets]
+    for leaf, (first, last) in sorted(span.items(),
+                                      key=lambda kv: (kv[1][0], kv[0])):
+        start = 2 * first - 1
+        while busy and busy[0][0] < start:
+            heapq.heappush(free, heapq.heappop(busy)[1])
+        if free:
+            slot = heapq.heappop(free)
+        else:
+            slot, used = used, used + 1
+        heapq.heappush(busy, (2 * last + 1, slot))
+        copies[first].append((slot, leaf))
+        for s in range(first, last + 1):
+            if leaf in leaf_sets[s]:
+                slot_of[s][leaf] = slot
+    for c in copies:
+        c.sort()
+    return Staging(copies, slot_of, used)
+
+
+class Part(NamedTuple):
+    """One kernel and one launch: terms [lo, hi) over every tile."""
+    lo: int                 # terms [lo, hi) of the recording
+    hi: int
+    stages: List[Stage]
+    staging: Staging
+    leaves: List[int]       # its column pointers -> leaf ids
+    params: List[int]       # its challenge words -> scalar-program defs
+    n_ops: int              # M31 operations in the part
+    tags: List[str]         # divisor tags of its terms, in "HTFL" order
+    text: str = ""          # the generated .cu
+    key: str = ""           # the hash that names its build
+
+    @property
+    def reads(self) -> int:
+        """Global column reads a point: the columns copied into shared
+        memory and the real and imaginary 1/Z rows of each tag."""
+        return sum(map(len, self.staging.copies)) + 2 * len(self.tags)
 
 
 def _describe(leaf) -> str:
@@ -543,109 +725,175 @@ def _describe(leaf) -> str:
     return f"{accessor}({', '.join(map(str, args))})[{comp}]"
 
 
-def part_source(rec: Recording, lo: int, hi: int) -> Part:
-    """The CUDA source of terms [lo, hi): its text names only what the
-    part reads and computes, so equal terms give equal text."""
+def _term_values(alg: RecAlg, comps):
+    """A term's nodes as the kernel accumulates them: None for a term that
+    is 0, its CM31 pair where its u-part is 0, else all four."""
+    if all(alg._val(x) == 0 for x in comps):
+        return None
+    if len(comps) == 4 and alg._val(comps[2]) == alg._val(comps[3]) == 0:
+        return comps[:2]
+    return comps
+
+
+def make_part(rec: Recording, stages: List[Stage], slots: int,
+              log_blowup: int) -> Part:
+    """A part's staging plan, its table's layout and its source."""
     alg = rec.alg
-    order = _needed(alg, [x for _, c in rec.terms[lo:hi] for x in c], set())
+    staging = staging_plan([s.leaves for s in stages], slots)
     leaves: Dict[int, int] = {}
+    for c in staging.copies:
+        for _, leaf in c:
+            leaves.setdefault(leaf, len(leaves))
     params: Dict[int, int] = {}
-    for x in order:
-        node = alg.nodes[x]
-        if node[0] == "leaf":
-            leaves.setdefault(node[1], len(leaves))
-        elif node[0] == "par":
-            params.setdefault(node[1], len(params))
-    n_leaves = len(leaves)
-    pw_base = n_leaves + len(params)
-    n_words = pw_base + 4 * (hi - lo)
-    name = {x: f"v{k}" for k, x in enumerate(order)}
+    for stage in stages:
+        for x in stage.order:
+            if alg.nodes[x][0] == "par":
+                params.setdefault(alg.nodes[x][1], len(params))
+    lo, hi = stages[0].lo, stages[-1].hi
+    tags = sorted({rec.terms[j][0] for j in range(lo, hi)}, key="HTFL".index)
+    part = Part(lo, hi, stages, staging, sorted(leaves, key=leaves.get),
+                sorted(params, key=params.get),
+                sum(len(s.order) for s in stages), tags)
+    text = part_source(rec, part, log_blowup)
+    return part._replace(text=text, key=part_key(text))
 
-    def ref(x):
-        v = alg._val(x)
-        return f"{v}u" if v is not None else name[x]
 
-    body = []
-    uses_next = False
-    for x in order:
-        node = alg.nodes[x]
-        if node[0] == "leaf":
-            uses_next |= node[2]
-            at = "j" if node[2] else "i"
-            expr = f"qp_leaf(tab, {leaves[node[1]]}, {at})"
-        elif node[0] == "par":
-            expr = f"(uint32_t)tab.w[{n_leaves + params[node[1]]}]"
-        else:
-            expr = f"{_C_OPS[node[0]]}({', '.join(map(ref, node[1:]))})"
-        body.append(f"    const uint32_t {name[x]} = {expr};")
-        if node[0] == "leaf":
-            body[-1] += f"  // {_describe(alg.leaves[node[1]])}"
-    tags = []
-    for j in range(lo, hi):
-        tag, comps = rec.terms[j]
-        if tag not in tags:
-            tags.append(tag)
-        if all(alg._val(x) == 0 for x in comps):
-            continue
-        if len(comps) == 4 and alg._val(comps[2]) == alg._val(comps[3]) == 0:
-            comps = comps[:2]
-        vals = [ref(x) for x in comps]
-        pairs = [f"cm31{{{a}, {b}}}" for a, b in zip(vals[::2], vals[1::2])]
-        at = pw_base + 4 * (j - lo)
-        body.append(f"    qp_acc{len(comps)}(acc_{tag}, {', '.join(pairs)}, "
-                    f"qp_pair(tab, {at}), qp_pair(tab, {at + 2}));"
-                    f"  // term {j}")
-    tags.sort(key="HTFL".index)
+def _part_lines(rec: Recording, part: Part) -> List[str]:
+    """The statements of one part over one tile: its stages in order, then
+    each tag's sum times 1/Z into the part's rows of partial sums (or the
+    result)."""
+    alg, staging = rec.alg, part.staging
+    col = {leaf: k for k, leaf in enumerate(part.leaves)}
+    word = {d: k for k, d in enumerate(part.params)}
+    pw_base = len(part.params)
+
+    def copy_lines(s):
+        def calls(fn, ind):
+            return [f"{ind}{fn}(sm + {slot} * QP_SPAN, tab.c[{col[leaf]}], "
+                    f"base, n, t);  // {_describe(alg.leaves[leaf])}"
+                    for slot, leaf in staging.copies[s]]
+
+        if not staging.copies[s]:
+            return ["    qp_commit();"]
+        return [*calls("qp_copy", " " * 4), "    if (t < QP_SHIFT) {",
+                *calls("qp_halo", " " * 8), "    }", "    qp_commit();"]
+
+    body = [f"    qacc acc_{tag} = {{}};" for tag in part.tags]
+    body += copy_lines(0)
+    name = {x: f"v{k}" for k, x in enumerate(
+        x for stage in part.stages for x in stage.order)}
+    n_stages = len(part.stages)
+    for s, stage in enumerate(part.stages):
+        ahead = s + 1 < n_stages
+        if ahead:
+            body += copy_lines(s + 1)
+        body += [f"    qp_wait<{int(ahead)}>();", "    __syncthreads();",
+                 f"    // stage {s}: terms [{stage.lo}, {stage.hi})"]
+        reads: Dict[int, str] = {}
+
+        def ref(x):
+            node = alg.nodes[x]
+            if node[0] == "imm":
+                return f"{node[1]}u"
+            if node[0] != "leaf":
+                return name[x]
+            if x not in reads:
+                reads[x] = f"s{s}_{len(reads)}"
+                at = " + QP_SHIFT" if node[2] else ""
+                body.append(f"    const uint32_t {reads[x]} = "
+                            f"sm[{staging.slot_of[s][node[1]]} * QP_SPAN{at} "
+                            f"+ t];  // {_describe(alg.leaves[node[1]])}")
+            return reads[x]
+
+        for x in stage.order:
+            node = alg.nodes[x]
+            if node[0] == "par":
+                expr = f"tab.w[{word[node[1]]}]"
+            else:
+                expr = f"{_C_OPS[node[0]]}({', '.join(map(ref, node[1:]))})"
+            body.append(f"    const uint32_t {name[x]} = {expr};")
+        for j in range(stage.lo, stage.hi):
+            comps = _term_values(alg, rec.terms[j][1])
+            if comps is None:
+                continue
+            vals = [ref(x) for x in comps]
+            pairs = [f"cm31{{{a}, {b}}}" for a, b in zip(vals[::2], vals[1::2])]
+            at = pw_base + 4 * (j - part.lo)
+            body.append(f"    qp_acc{len(comps)}(acc_{rec.terms[j][0]}, "
+                        f"{', '.join(pairs)}, qp_pair(tab, {at}), "
+                        f"qp_pair(tab, {at + 2}));  // term {j}")
+        if ahead:
+            body.append("    __syncthreads();")
+    return body + [
+        "    if (i >= n) return;",
+        "    qacc r = {};",
+        *[f"    qp_divide(r, acc_{tag}, dinv + {TAG_ROW[tag]} * n, n, i);"
+          for tag in part.tags],
+        "    qp_finish(partial, out, part, r, n, i);"]
+
+
+def part_source(rec: Recording, part: Part, log_blowup: int) -> str:
+    """The CUDA source of one part: CTA b runs the part on tile b.  Its
+    text names only what the part reads and computes, so equal parts give
+    equal text; which part of the launches it is, and whether it is the
+    last, are arguments."""
+    n_words = len(part.params) + 4 * (part.hi - part.lo)
     lines = [
         "// Generated by zkir_tpu_torch/prover/quotient_codegen.py from the",
         "// constraint system: one part of the quotient.  Do not edit.",
-        f"// Terms [{lo}, {hi}), {len(order)} M31 operations; table: "
-        f"{n_leaves} column pointers, {len(params)} challenge words, "
-        f"{4 * (hi - lo)} alpha-power words.",
+        f"// Terms [{part.lo}, {part.hi}) in {len(part.stages)} stages, "
+        f"{part.n_ops} M31 operations, "
+        f"{sum(map(len, part.staging.copies))} column copies into "
+        f"{part.staging.slots} slots.",
+        f"#define QP_TILE {TILE}",
+        f"#define QP_SHIFT {1 << log_blowup}",
+        f"#define QP_SLOTS {part.staging.slots}",
         '#include "quotient.cuh"',
         "",
-        f"typedef qp_table<{n_words}> table_t;",
+        f"typedef qp_table<{len(part.leaves)}, {n_words}> table_t;",
         "",
-        f"extern \"C\" __global__ void __launch_bounds__({THREADS}, "
-        f"{MIN_BLOCKS})",
+        f"extern \"C\" __global__ void __launch_bounds__(QP_TILE, "
+        f"{ctas_per_sm(part, 1 << log_blowup)})",
         "quotient_part_kernel(const __grid_constant__ table_t tab,",
         "                     const int64_t* __restrict__ dinv,",
-        "                     int64_t* __restrict__ out, long long n,",
-        "                     long long shift, int accumulate) {",
-        "    const long long i = (long long)blockIdx.x * blockDim.x "
-        "+ threadIdx.x;",
-        "    if (i >= n) return;",
-    ]
-    if uses_next:
-        lines.append("    const long long j = (i + shift) & (n - 1);")
-    else:
-        lines.append("    (void)shift;")
-    lines += [f"    qacc acc_{t} = {{}};" for t in tags]
-    lines += body
-    lines.append("    qacc r = {};")
-    lines += [f"    qp_divide(r, acc_{t}, dinv + {TAG_ROW[t]} * n, n, i);"
-              for t in tags]
-    lines += [
-        "    qp_store(out, r, n, i, accumulate);",
+        "                     uint32_t* __restrict__ partial,",
+        "                     int64_t* __restrict__ out, int part, long long n) {",
+        "    extern __shared__ uint32_t sm[];",
+        "    const int t = threadIdx.x;",
+        "    const long long base = (long long)blockIdx.x * QP_TILE;",
+        "    const long long i = base + t;",
+        *_part_lines(rec, part),
         "}",
         "",
-        "extern \"C\" int quotient_part(const int64_t* table, "
-        "const int64_t* dinv, int64_t* out,",
-        "                              long long n, long long shift, "
-        "int accumulate,",
+        "extern \"C\" int quotient_part(const int64_t* cols, "
+        "const uint32_t* words,",
+        "                              const int64_t* dinv, uint32_t* partial,",
+        "                              int64_t* out, int part, long long n,",
         "                              cudaStream_t stream) {",
         "    table_t tab;",
-        "    memcpy(tab.w, table, sizeof tab.w);",
-        f"    quotient_part_kernel<<<(unsigned)((n + {THREADS - 1}) / "
-        f"{THREADS}), {THREADS}, 0, stream>>>(",
-        "        tab, dinv, out, n, shift, accumulate);",
+        "    memcpy(tab.c, cols, sizeof tab.c);",
+        "    memcpy(tab.w, words, sizeof tab.w);",
+        "    const int smem = QP_SLOTS * QP_SPAN * 4;",
+        "    const cudaError_t err = cudaFuncSetAttribute(",
+        "        quotient_part_kernel, "
+        "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);",
+        "    if (err != cudaSuccess) return (int)err;",
+        "    quotient_part_kernel<<<(unsigned)((n + QP_TILE - 1) / QP_TILE), "
+        "QP_TILE, smem,",
+        "                           stream>>>(tab, dinv, partial, out, part, n);",
         "    return (int)cudaGetLastError();",
         "}",
         "",
     ]
-    text = "\n".join(lines)
-    return Part(lo, hi, text, sorted(leaves, key=leaves.get),
-                sorted(params, key=params.get), len(order), part_key(text))
+    return "\n".join(lines)
+
+
+def ctas_per_sm(part: Part, shift: int) -> int:
+    """The CTAs an SM can hold for this part by its shared memory, from
+    ``MIN_BLOCKS`` to ``MAX_BLOCKS``: its kernel's ``__launch_bounds__``,
+    which caps the registers so that as many fit."""
+    smem = 4 * (TILE + shift) * part.staging.slots + SMEM_RESERVED
+    return max(MIN_BLOCKS, min(MAX_BLOCKS, SMEM_PER_SM // smem))
 
 
 def part_key(text: str) -> str:
@@ -658,69 +906,58 @@ def part_key(text: str) -> str:
     return h.hexdigest()[:16]
 
 
+def operation_counts(rec: Recording) -> Dict[str, int]:
+    """The helper calls one point needs whatever the kernel's design:
+    every M31 node of the recording once (no node computed twice, no
+    column read counted), one ``qp_acc2`` or ``qp_acc4`` a term, one
+    ``qp_divide`` a divisor tag and one store of the four words
+    (``qp_finish``)."""
+    alg = rec.alg
+    counts: Dict[str, int] = {name: 0 for name in _C_OPS.values()}
+    for x in _needed(alg, [x for _, c in rec.terms for x in c], set()):
+        if alg.nodes[x][0] in _C_OPS:
+            counts[_C_OPS[alg.nodes[x][0]]] += 1
+    counts.update(qp_acc2=0, qp_acc4=0, qp_finish=1,
+                  qp_divide=len({tag for tag, _ in rec.terms}))
+    for _, comps in rec.terms:
+        comps = _term_values(alg, comps)
+        if comps is not None:
+            counts[f"qp_acc{len(comps)}"] += 1
+    return counts
+
+
 # ============================================================================
-# Build, load, launch.
+# The host's table: alpha powers, challenge words, column addresses.
 # ============================================================================
 
 
-class Kernel:
-    """A feature set's recording, parts and loaded libraries."""
+def _times_matrix(c) -> np.ndarray:
+    """The 4 x 4 matrix (uint64, entries mod p) of x -> x c on QM31 words
+    (a.re, a.im, b.re, b.im): (A + B u)(a + b u) = (A a + R B b) + (A b +
+    B a) u, R = u^2 = 2 + i."""
+    a0, a1, b0, b1 = (int(v) % P for v in c)
+    rb0, rb1 = 2 * b0 - b1, b0 + 2 * b1          # R b
+    m = [[a0, -a1, rb0, -rb1], [a1, a0, rb1, rb0],
+         [b0, -b1, a0, -a1], [b1, b0, a1, a0]]
+    return np.asarray([[v % P for v in row] for row in m], dtype=np.uint64)
 
-    def __init__(self, features, rec: Recording, parts: List[Part]):
-        self.features, self.rec, self.parts = features, rec, parts
-        self.groups = _leaf_groups(rec.alg.leaves)
-        self.fns = []
 
-    def load(self):
-        for part in self.parts:
-            lib = ctypes.CDLL(str(BUILD / f"part_{part.key}.so"))
-            fn = lib.quotient_part
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 \
-                + [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self.fns.append((lib, fn))
-
-    def table(self, A, keys, alpha):
-        """Every part's table, one after the other, and where each
-        begins: the addresses of its columns in ``A``, its challenge
-        words for these challenges, its terms' alpha powers."""
-        from .constraints import _alpha_powers_np
-
-        words = self.rec.scalars.evaluate(challenge_words(keys))
-        pw = _alpha_powers_np(alpha, len(self.rec.terms)).astype(np.int64)
-        ptrs = _leaf_pointers(A, self.groups, len(self.rec.alg.leaves),
-                              A.big)
-        pieces, offsets = [], []
-        at = 0
-        for part in self.parts:
-            offsets.append(at)
-            piece = np.concatenate([
-                ptrs[part.leaves], np.asarray([words[k] for k in part.params],
-                                              dtype=np.int64),
-                pw[part.lo:part.hi].ravel()])
-            pieces.append(piece)
-            at += piece.size
-        return np.concatenate(pieces), offsets
-
-    def __call__(self, A, keys, alpha, log_n, log_blowup, shift):
-        tab, offsets = self.table(A, keys, alpha)
-        return self.launch(tab, offsets, _dinv_rows(
-            log_n, log_blowup, tuple(shift), A.ext_r.device), A.big,
-            log_blowup)
-
-    def launch(self, tab, offsets, dinv, n, log_blowup):
-        """One launch per part on the current stream: the QM31 4-tuple of
-        [n] rows.  The tables stay on the host: each launch copies its
-        part's into the kernel's parameters."""
-        out = torch.empty((4, n), dtype=torch.int64, device=dinv.device)
-        lib = _kernels._lib or _kernels._load()
-        stream = _kernels._current_stream()
-        for k, ((_, fn), off) in enumerate(zip(self.fns, offsets)):
-            err = fn(tab.ctypes.data + 8 * off, dinv.data_ptr(),
-                     out.data_ptr(), n, 1 << log_blowup, int(k > 0), stream)
-            _kernels._check(lib, err, "quotient_part")
-            _kernels.launches["quotient_part"] += 1
-        return tuple(out)
+def alpha_powers(alpha, n_terms: int) -> np.ndarray:
+    """alpha^0 .. alpha^(n_terms - 1) as [n_terms, 4] uint32 QM31 words,
+    the words of ``constraints._alpha_powers_np``, by doubling: powers
+    [k, 2k) are powers [0, k) times alpha^k, one product by a 4 x 4
+    matrix a round (four products of words < 2^31 sum below 2^64)."""
+    pw = np.zeros((n_terms, 4), dtype=np.uint64)
+    pw[0, 0] = 1
+    step = np.asarray([int(a) % P for a in alpha], dtype=np.uint64)
+    k = 1
+    while k < n_terms:
+        m = min(k, n_terms - k)
+        times = _times_matrix(step)
+        pw[k:k + m] = (pw[:m] @ times.T) % P
+        step = (times @ step) % P
+        k *= 2
+    return pw.astype(np.uint32)
 
 
 def _leaf_groups(leaves):
@@ -768,24 +1005,97 @@ def _dinv_rows(log_n, log_blowup, shift, device):
     return torch.from_numpy(rows.astype(np.int64)).to(device)
 
 
-def plan(features) -> Kernel:
-    """A feature set's recording and generated parts, not yet built."""
+# ============================================================================
+# Build, load, launch.
+# ============================================================================
+
+
+class Kernel:
+    """A feature set's recording and parts at one blowup, and the loaded
+    libraries."""
+
+    def __init__(self, features, log_blowup, rec: Recording,
+                 parts: List[Part]):
+        self.features, self.log_blowup = features, log_blowup
+        self.rec, self.parts = rec, parts
+        self.leaf_groups = _leaf_groups(rec.alg.leaves)
+        wanted = sorted(set().union(*(p.params for p in parts)))
+        self._words = rec.scalars.compile(wanted)
+        # A part's words, as indices into the challenge words followed by
+        # the flat alpha powers.
+        at = {k: n for n, k in enumerate(wanted)}
+        self._gather = [
+            (np.asarray(p.leaves, dtype=np.int64),
+             np.asarray([at[k] for k in p.params] + list(
+                 range(len(wanted) + 4 * p.lo, len(wanted) + 4 * p.hi)),
+                 dtype=np.int64)) for p in parts]
+        self.fns = []
+
+    def load(self):
+        for part in self.parts:
+            lib = ctypes.CDLL(str(BUILD / f"part_{part.key}.so"))
+            fn = lib.quotient_part
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.fns.append((lib, fn))
+
+    def table(self, A, keys, alpha):
+        """Every part's table, built once for a proof: the addresses of its
+        columns in ``A`` (int64), then its challenge words for these
+        challenges and its terms' alpha powers (uint32)."""
+        words = np.concatenate([
+            np.asarray(self._words(challenge_words(keys)), dtype=np.uint32),
+            alpha_powers(alpha, len(self.rec.terms)).ravel()])
+        ptrs = _leaf_pointers(A, self.leaf_groups, len(self.rec.alg.leaves),
+                              A.big)
+        return [(ptrs[leaves], words[at]) for leaves, at in self._gather]
+
+    def __call__(self, A, keys, alpha, log_n, shift):
+        return self.launch(self.table(A, keys, alpha), _dinv_rows(
+            log_n, self.log_blowup, tuple(shift), A.ext_r.device), A.big)
+
+    def launch(self, tables, dinv, n):
+        """One launch per part on the current stream: the QM31 4-tuple of
+        [n] rows.  Every part but the last writes its rows of partial
+        sums; the last adds them to its own into the result.  The tables
+        stay on the host: each launch copies its part's into the kernel's
+        parameters."""
+        last = len(self.parts) - 1
+        partial = torch.empty((last, 4, n), dtype=torch.int32,
+                              device=dinv.device)
+        out = torch.empty((4, n), dtype=torch.int64, device=dinv.device)
+        lib = _kernels._lib or _kernels._load()
+        stream = _kernels._current_stream()
+        for k, ((_, fn), (cols, words)) in enumerate(zip(self.fns, tables)):
+            err = fn(cols.ctypes.data, words.ctypes.data, dinv.data_ptr(),
+                     partial.data_ptr(), out.data_ptr() if k == last else None,
+                     k, n, stream)
+            _kernels._check(lib, err, "quotient_part")
+            _kernels.launches["quotient_part"] += 1
+        return tuple(out)
+
+
+def plan(features, log_blowup: int) -> Kernel:
+    """A feature set's recording and generated parts at this blowup, not
+    yet built."""
     rec = record(features)
-    return Kernel(features, rec, [part_source(rec, lo, hi)
-                                  for lo, hi in split(rec)])
+    slots = n_slots(1 << log_blowup)
+    return Kernel(features, log_blowup, rec, [
+        make_part(rec, cut_stages(rec, lo, hi), slots, log_blowup)
+        for lo, hi in cut_parts(rec, slots)])
 
 
-_PREPARED: Dict[Tuple[bool, ...], Kernel] = {}
+_PREPARED: Dict[tuple, Kernel] = {}
 
 
-def prepare(*feature_sets) -> List[Kernel]:
-    """Record, generate, build and load the kernels of these feature sets
-    (at most once per process each); every part not yet built is compiled
-    at once, one ``nvcc`` per source."""
+def prepare(*keys) -> List[Kernel]:
+    """Record, generate, build and load the kernels of these (feature
+    set, log_blowup) pairs (at most once per process each); every part
+    not yet built is compiled at once, one ``nvcc`` per source."""
     global compiles
-    feature_sets = [tuple(bool(x) for x in f) for f in feature_sets]
-    todo = [plan(f) for f in dict.fromkeys(feature_sets)
-            if f not in _PREPARED]
+    keys = [(tuple(bool(x) for x in f), int(b)) for f, b in keys]
+    todo = [plan(*k) for k in dict.fromkeys(keys) if k not in _PREPARED]
     missing = {}
     for kernel in todo:
         for part in kernel.parts:
@@ -802,8 +1112,8 @@ def prepare(*feature_sets) -> List[Kernel]:
         compiles += len(sources)
     for kernel in todo:
         kernel.load()
-        _PREPARED[kernel.features] = kernel
-    return [_PREPARED[f] for f in feature_sets]
+        _PREPARED[kernel.features, kernel.log_blowup] = kernel
+    return [_PREPARED[k] for k in keys]
 
 
 def quotient_evals_cuda(ext_r, ext_i, log_n: int, log_blowup: int, shift,
@@ -817,5 +1127,5 @@ def quotient_evals_cuda(ext_r, ext_i, log_n: int, log_blowup: int, shift,
         raise ValueError(f"the LDE domain has {ext_r.shape[1]} points, not "
                          "a power of two")
     A, keys = _vec_alg(ext_r, ext_i, log_blowup, **args)
-    kernel, = prepare(features_of(keys))
-    return kernel(A, keys, alpha, log_n, log_blowup, shift)
+    kernel, = prepare((features_of(keys), log_blowup))
+    return kernel(A, keys, alpha, log_n, shift)

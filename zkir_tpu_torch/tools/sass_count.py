@@ -13,6 +13,12 @@ branches), in address order.  Prints the static instruction count, each
 loop's body, and the dynamic count = straight-line code + body x trips,
 split by opcode class.  Loops must not nest (the permutation's do not).
 
+The quotient's operation count (``chip_smoke.py``'s bound for the
+generated kernels) takes each helper of ``csrc/m31.cuh`` and
+``csrc/quotient.cuh`` at its instructions in a probe built from those
+headers (``helper_instructions``): the helper applied in a dependent chain
+of 16 and of 8 calls, the difference over 8.
+
 For a kernel whose loop body branches on its data (the interpreter's
 cycle loop, one path per opcode):
 
@@ -29,7 +35,9 @@ lower bound.
 """
 
 import collections
+import pathlib
 import re
+import subprocess
 import sys
 
 
@@ -96,6 +104,70 @@ def loop_floor(ins, loop):
     always = [a for a, _, _ in ins if start <= a <= end
               and not any(lo <= a < hi for lo, hi in skipped)]
     return start, end, len(always)
+
+
+# Each helper as one step of a chain the compiler can neither fold nor
+# hoist: every call takes the previous call's result.
+_HELPER_CHAINS = {
+    "m31_add": "x = m31_add(x, b);",
+    "m31_sub": "x = m31_sub(x, b);",
+    "m31_mul": "x = m31_mul(x, b);",
+    "m31_dot": "x = m31_dot(x, b, c, x);",
+    "m31_dotn": "x = m31_dotn(x, b, c, x);",
+    "qp_acc2": "qp_acc2(acc, acc.a, p, q);",
+    "qp_acc4": "qp_acc4(acc, acc.a, acc.b, p, q);",
+    "qp_divide": "qp_divide(acc, acc, dinv, n, (long long)x);",
+    "qp_finish": "qp_finish(o, nullptr, 0, acc, n, (long long)x + r);",
+}
+
+
+def helper_source() -> str:
+    """The probe: for each helper, kernels ``probe_<helper>_<R>`` that
+    apply it R = 8 and R = 16 times in a chain."""
+    lines = ["#define QP_TILE 128", "#define QP_SHIFT 4",
+             '#include "quotient.cuh"', ""]
+    for name, step in _HELPER_CHAINS.items():
+        for reps in (8, 16):
+            lines += [
+                f'extern "C" __global__ void probe_{name}_{reps}(',
+                "    const uint32_t* in, uint32_t* o, const int64_t* dinv,",
+                "    int64_t* out, long long n) {",
+                "    uint32_t x = in[threadIdx.x], b = in[threadIdx.x + 32],",
+                "             c = in[threadIdx.x + 64];",
+                "    const cm31 p = {in[96], in[97]}, q = {in[98], in[99]};",
+                "    qacc acc = {{x, b}, {c, x ^ b}};",
+                "#pragma unroll",
+                f"    for (int r = 0; r < {reps}; ++r) {{ {step} }}",
+                "    o[threadIdx.x] = x ^ acc.a.re ^ acc.a.im ^ acc.b.re "
+                "^ acc.b.im;",
+                "}", ""]
+    return "\n".join(lines)
+
+
+def helper_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions of one call of each quotient helper in code built by
+    ``nvcc`` for sm_90a from the headers in ``csrc``: the SASS of the
+    16-call chain less the 8-call chain's (NOPs aside), over 8."""
+    work = pathlib.Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    cu, cubin = work / "helpers.cu", work / "helpers.cubin"
+    cu.write_text(helper_source())
+    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-std=c++17", "-O3", "-cubin", "-I", str(csrc),
+                          "-o", str(cubin), str(cu)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the helper probe:\n{res.stderr}")
+    sass = work / "helpers.sass"
+    sass.write_text(subprocess.run(
+        [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+        check=True, capture_output=True, text=True).stdout)
+
+    def count(kernel):
+        return sum(op != "NOP" for _, op, _ in instructions(sass, kernel))
+
+    return {name: (count(f"probe_{name}_16") - count(f"probe_{name}_8")) / 8
+            for name in _HELPER_CHAINS}
 
 
 def main():
