@@ -24,7 +24,11 @@ path):
    events, beside the least time the card could take) and at a few more
    (strided, broadcast and immediate operands; short, real and coset
    transforms of one, two and three passes), plus the pinned Poseidon2
-   known-answer vectors;
+   known-answer vectors; ``p2_merkle_tree`` (a whole tree in one launch)
+   against ``build_tree_plain`` and the per-level loop at every tree shape
+   of the main path (2^18 .. 2^6 leaves) and at 2 and 4 leaves, timed
+   against the loop beside its bound and its latency floor (levels times
+   one permutation's latency, a one-state ``p2_permute`` launch);
 4. prove the small golden traces A-E on the card (A, B without
    ``range_lookup``; C with it; D and E program-bound, with an I/O tape
    and a SHA-256 syscall) and require proofs equal (after a JSON round
@@ -60,8 +64,10 @@ path):
    bound (596 committed trace columns, 119 QM31 partial-sum columns, 838
    batched terms), cold and warm; the two proofs must be equal, the
    port's verifier must accept them with the program, the interpreter's
-   and every prover kernel must have been launched, and the NTT family
-   must launch nothing but ``cm31_ntt``; no prove may compile a
+   and every prover kernel must have been launched, every tree of every
+   prove (cold and warm, also without ``range_lookup``) must be one
+   ``p2_merkle_tree`` launch with no ``p2_compress_level``, and the NTT
+   family must launch nothing but ``cm31_ntt``; no prove may compile a
    quotient kernel (one build serves every proof of a feature set);
 8. the CLI as a user runs it, in subprocesses of ``python3 -m
    zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with both
@@ -73,7 +79,8 @@ path):
 
 The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
-run of phase 7, for ``p2_permute`` the syscall run of phase 5; max
+run of phase 7, for ``p2_permute`` the syscall run of phase 5, and 0 for
+``p2_compress_level``, which no path launches any more; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
 timed cases; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -123,6 +130,8 @@ KERNELS = {
                        "zkir_tpu/ops/poseidon2.py:261"),
     "p2_compress_level": ("zkir_tpu_torch/csrc/poseidon2.cu",
                           "zkir_tpu/ops/poseidon2.py:261"),
+    "p2_merkle_tree": ("zkir_tpu_torch/csrc/poseidon2.cu",
+                       "zkir_tpu/ops/poseidon2.py:261"),
     "p2_grind": ("zkir_tpu_torch/csrc/poseidon2.cu",
                  "zkir_tpu/ops/poseidon2.py:261"),
     # The jitted lax.scan of the reference interpreter (XLA, not Pallas),
@@ -140,8 +149,10 @@ QUOTIENT_SETS = {"main path": (True,) * 6,
                  "range_lookup=False": (False,) * 6}
 QUOTIENT_LOG_BLOWUP = 2      # FriConfig()'s, and every golden's
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
-# to the interpreter's Poseidon2 syscalls.
-MAIN_PATH_KERNELS = [k for k in KERNELS if k != "p2_permute"]
+# to the interpreter's Poseidon2 syscalls, and p2_compress_level (one tree
+# level) to no path since p2_merkle_tree builds each tree in one launch.
+MAIN_PATH_KERNELS = [k for k in KERNELS
+                     if k not in ("p2_permute", "p2_compress_level")]
 PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
 # Instructions every cycle executes in the interpreter kernel, whatever its
 # opcode: a floor, zkir_tpu_torch/tools/sass_count.py --floor on the
@@ -447,6 +458,7 @@ def phase_kernels(results) -> None:
             n_bytes=8 * (leaves.numel() + leaves.numel() // 2),
             n_ops=perm * leaves.shape[0] // 2)
     del leaves
+    phase_trees(results, gen)
     # The same entry points at more shapes (equality only): larger and
     # smaller batches, a row width that is a multiple of 8, and batches
     # that do not fill the last thread block.
@@ -485,6 +497,88 @@ def phase_kernels(results) -> None:
             got != poseidon2_sponge(abc):
         raise AssertionError("sponge KAT failed")
     log("poseidon2 KATs: exact")
+
+
+def phase_trees(results, gen) -> None:
+    """``p2_merkle_tree`` against ``build_tree_plain`` word for word at
+    every tree shape of the main path (2^18 .. 2^6 leaves) and at 2 and 4
+    leaves, and against the per-level loop (``p2_compress_level``, a launch
+    a level, the tree as the port built it before ``p2_merkle_tree``);
+    both timed at 2^18, 2^17, 2^12, 2^6 and 2 leaves, the launch alone
+    and with its wrapper, beside the bound and the latency floor (the
+    levels times one permutation's latency, a one-state ``p2_permute``
+    launch alone).  A narrow level's own latency (4 lanes a node) is the
+    slope of the one-CTA trees from 2 to 2^6 leaves."""
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.ops import merkle
+    from zkir_tpu_torch.ops import poseidon2 as p2
+
+    one = words(gen, (1, 16))
+    one_out = torch.empty_like(one)
+    latency = cuda_ms(lambda: _kernels.launch(
+        "p2_permute", one.data_ptr(), one_out.data_ptr(), 1), 500)
+    log(f"one permutation's latency (a one-state p2_permute launch alone): "
+        f"{latency:.4f} ms")
+
+    def per_level(leaves):
+        levels = [leaves]
+        while levels[-1].shape[0] > 1:
+            levels.append(p2.poseidon2_compress_level(levels[-1]))
+        return levels
+
+    for log_n in (18, 17, 16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 2, 1):
+        n = 1 << log_n
+        leaves = words(gen, (n, 8))
+        got = merkle.build_tree(leaves)
+        for name, want in (("build_tree_plain", merkle.build_tree_plain),
+                           ("the per-level loop", per_level)):
+            want = want(leaves)
+            if len(got) != len(want) or any(
+                    not torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"p2_merkle_tree differs from {name} "
+                                     f"at 2^{log_n} leaves")
+        if log_n not in (18, 17, 12, 6, 1):
+            log(f"p2_merkle_tree: exact at 2^{log_n} leaves")
+            continue
+        nodes = torch.empty((n - 1, 8), dtype=torch.int64, device="cuda")
+        outs = [lv.clone() for lv in got[1:]]
+        ins = [leaves] + outs[:-1]
+        iters = 20 if log_n >= 17 else 100
+        timed = {
+            "launch_ms": cuda_ms(lambda: _kernels.launch(
+                "p2_merkle_tree", leaves.data_ptr(), nodes.data_ptr(), n),
+                iters),
+            "ms": cuda_ms(lambda: merkle.build_tree(leaves), iters),
+            "per_level_launches_ms": cuda_ms(lambda: [_kernels.launch(
+                "p2_compress_level", a.data_ptr(), b.data_ptr(),
+                b.shape[0]) for a, b in zip(ins, outs)], iters),
+            "per_level_ms": cuda_ms(lambda: per_level(leaves), iters),
+            "per_level_launches": log_n,
+            "plain_ms": cuda_ms(lambda: merkle.build_tree_plain(leaves), 3),
+            "latency_floor_ms": log_n * latency,
+            "max_abs_err": 0, "library_ms": None,
+            # Leaves read once, every level written once; a permutation a
+            # node.
+            **bound(8 * 8 * (2 * n - 1), P2_INSTR_PER_PERMUTATION * (n - 1))}
+        key = ("p2_merkle_tree" if log_n == 18
+               else f"p2_merkle_tree [2^{log_n}]")
+        results[key] = timed
+        log(f"{key}: exact; launch alone {timed['launch_ms']:.4f} ms, with "
+            f"its wrapper {timed['ms']:.4f} ms; the per-level loop "
+            f"({log_n} launches) {timed['per_level_launches_ms']:.4f} ms "
+            f"alone, {timed['per_level_ms']:.4f} ms with its wrappers; "
+            f"plain {timed['plain_ms']:.4f} ms; bound "
+            f"{timed['bound_ms']:.4f} ms by {timed['bound_by']}, latency "
+            f"floor {timed['latency_floor_ms']:.4f} ms")
+        del nodes, outs, ins
+    lane_level = (results["p2_merkle_tree [2^6]"]["launch_ms"]
+                  - results["p2_merkle_tree [2^1]"]["launch_ms"]) / 5
+    results["p2_merkle_tree"].update(permutation_latency_ms=latency,
+                                     narrow_level_ms=lane_level)
+    log(f"p2_merkle_tree: a narrow level (4 lanes a node) takes "
+        f"{lane_level:.4f} ms, one thread's permutation {latency:.4f} ms")
 
 
 def interp_flat(state, trace, valid_only=True):
@@ -944,6 +1038,14 @@ def phase_interp(results) -> dict:
             20, results, plain_iters=3, n_bytes=16 * 8 + 8,
             n_ops=P2_INSTR_PER_PERMUTATION * trials)
     results["p2_grind"]["trials"] = trials
+    t0 = time.perf_counter()
+    for _ in range(20):
+        p2.grind(state, 16, "cuda")
+    results["p2_grind"]["call_ms_host_clock"] = \
+        (time.perf_counter() - t0) / 20 * 1e3
+    log(f"p2_grind: 16 bits, {trials} trials; the whole call "
+        f"{results['p2_grind']['call_ms_host_clock']:.4f} ms by the host "
+        f"clock")
     return stats
 
 
@@ -1301,22 +1403,27 @@ def phase_goldens(results, quotient_stats) -> None:
 
 def logged_prove(prove):
     """Run ``prove()`` with ``ZKIR_PROVE_LOG`` on: (proof, seconds, stage
-    seconds and stage launches by message, peak device bytes)."""
+    seconds and stage launches by message, peak device bytes).  Fails if
+    a tree was not one launch."""
     import torch
+
+    from zkir_tpu_torch import _kernels
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
     os.environ["ZKIR_PROVE_LOG"] = "1"     # stage times on stderr
     captured = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(captured):
+        with contextlib.redirect_stderr(captured), tree_sizes() as sizes:
             proof = prove()
     finally:
         del os.environ["ZKIR_PROVE_LOG"]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    check_trees("warm prove", _kernels.launches, sizes)
     sys.stderr.write(captured.getvalue())
     # "[prove   0.0123s] message [launches 45]": seconds and kernel
     # launches since the prove began.
@@ -1330,10 +1437,41 @@ def logged_prove(prove):
     return proof, seconds, stages, peak
 
 
+@contextlib.contextmanager
+def tree_sizes():
+    """The leaf count of every tree ``merkle.build_tree`` builds inside the
+    block, in a list."""
+    from zkir_tpu_torch.ops import merkle
+
+    sizes = []
+    real = merkle.build_tree
+
+    def spy(leaves):
+        sizes.append(leaves.shape[0])
+        return real(leaves)
+
+    merkle.build_tree = spy
+    try:
+        yield sizes
+    finally:
+        merkle.build_tree = real
+
+
+def check_trees(what, launches, sizes) -> None:
+    """One ``p2_merkle_tree`` launch a tree of two leaves or more, and no
+    tree built level by level."""
+    trees = sum(1 for n in sizes if n > 1)
+    if launches.get("p2_merkle_tree", 0) != trees \
+            or launches.get("p2_compress_level", 0):
+        raise AssertionError(f"{what}: {trees} trees took {launches}")
+    log(f"{what}: {trees} trees (leaves {sizes}), one p2_merkle_tree "
+        f"launch each, no p2_compress_level")
+
+
 def counted(prove, kernels):
     """Run ``prove()`` with every launch count set to 0 just before and
     read just after: (proof, seconds, launches).  Fails if one of
-    ``kernels`` was not launched."""
+    ``kernels`` was not launched, or if a tree was not one launch."""
     import torch
 
     from zkir_tpu_torch import _kernels
@@ -1341,13 +1479,15 @@ def counted(prove, kernels):
     torch.cuda.synchronize()
     _kernels.reset_launches()
     t0 = time.perf_counter()
-    proof = prove()
+    with tree_sizes() as sizes:
+        proof = prove()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_kernels.launches)
     missing = [k for k in kernels if not launches.get(k)]
     if missing:
         raise AssertionError(f"kernels not launched by the path: {missing}")
+    check_trees("first prove", launches, sizes)
     return proof, seconds, launches
 
 
@@ -1593,7 +1733,10 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, replaces) in KERNELS.items()]
-    if any(not k["launches"] for k in kernels):
+    # p2_compress_level builds one level; no path of the port launches it
+    # since p2_merkle_tree builds each tree in one launch (0 above).
+    if any(not k["launches"] for k in kernels
+           if k["name"] != "p2_compress_level"):
         raise AssertionError(f"a kernel was launched by no path: {kernels}")
     more = {k: v for k, v in results.items() if k not in KERNELS}
     print(json.dumps({**stats, "more_kernel_cases": more, "card": card}))

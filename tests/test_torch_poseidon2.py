@@ -118,6 +118,96 @@ def test_build_tree_fused_and_paths():
         pm.build_tree(t(leaves[:6]))
 
 
+@pytest.mark.parametrize("n", [1, 2, 8, 64])
+def test_build_tree_plain_levels_are_views_of_one_buffer(n):
+    """Levels 1.. of ``build_tree_plain`` (the layout the kernel's result is
+    read through) are consecutive views of one [n - 1, 8] buffer: level j
+    has n >> j rows from row n - (n >> (j - 1)), the root last."""
+    leaves = t(words(20 + n, (n, 8)))
+    levels = pm.build_tree_plain(leaves)
+    assert levels[0] is leaves
+    assert len(levels) == n.bit_length()
+    if n == 1:
+        return
+    nodes = levels[1]._base
+    assert nodes is not None and nodes.shape == (n - 1, 8)
+    for j, level in enumerate(levels[1:], start=1):
+        assert level._base is nodes
+        assert level.shape == (n >> j, 8)
+        assert level.storage_offset() == 8 * (n - (n >> (j - 1)))
+    assert levels[-1].storage_offset() == 8 * (n - 2)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 64])
+def test_build_tree_matches_the_reference(n):
+    """``build_tree`` and ``build_tree_fused`` on CPU tensors (the plain
+    version) against the reference's fused tree, word for word; a single
+    leaf is its own root and has no internal level."""
+    leaves = words(30 + n, (n, 8))
+    want = rm.to_host(rm.build_tree_fused(jnp.asarray(leaves)))
+    for build in (pm.build_tree, pm.build_tree_fused):
+        got = build(t(leaves))
+        assert len(got) == len(want) == n.bit_length()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(host(g), w)
+        np.testing.assert_array_equal(pm.root(got), rm.root(want))
+
+
+@pytest.mark.parametrize("n", [2, 8, 64])
+def test_to_host_in_one_copy_equals_a_copy_per_level(n):
+    levels = pm.build_tree(t(words(40 + n, (n, 8))))
+    got = pm.to_host(levels)
+    want = [lv.numpy().astype(np.uint32) for lv in levels]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint32
+        np.testing.assert_array_equal(g, w)
+
+
+def test_to_host_refuses_levels_of_separate_buffers():
+    """The one copy reads the levels through the buffer ``build_tree``
+    made; levels from anywhere else are refused, not misread."""
+    levels = pm.build_tree(t(words(48, (8, 8))))
+    with pytest.raises(ValueError, match="one buffer"):
+        pm.to_host([levels[0]] + [lv.clone() for lv in levels[1:]])
+    assert len(pm.to_host(levels[:1])) == 1
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("state, bits", [
+    ([1] * 15, 4),              # 15 words
+    ([1] * 17, 4),              # 17 words
+    ([1] * 15 + [P], 4),        # a word that is not canonical
+    ([1] * 16, 0),
+    ([1] * 16, 32),
+])
+def test_grind_refuses_bad_arguments(device, state, bits):
+    """Refused before any search or launch, on either device (so also here,
+    where there is no card)."""
+    with pytest.raises(ValueError, match="16 canonical words"):
+        pp.grind(state, bits, device)
+
+
+def test_grind_on_a_card_is_one_entry_point_call(monkeypatch):
+    """On a CUDA device ``grind`` makes one ``p2_grind`` call: the 16 words
+    by value, the search range, a host word that receives the nonce.  The
+    entry point is faked here (no card): it writes the nonce."""
+    import ctypes
+
+    from zkir_tpu_torch import _kernels
+
+    calls = []
+
+    def fake_launch(name, state, bits, start, limit, nonce):
+        calls.append((name, list(state), bits, start, limit))
+        ctypes.cast(nonce, ctypes.POINTER(ctypes.c_longlong))[0] = 1234
+
+    monkeypatch.setattr(_kernels, "launch", fake_launch)
+    state = [int(w) for w in words(50, 16)]
+    assert pp.grind(state, 12, "cuda") == 1234
+    assert calls == [("p2_grind", state, 12, 0, pp.GRIND_LIMIT)]
+
+
 @pytest.mark.parametrize("bits", [0, 1, 2, 8])
 def test_grind_nonce(bits):
     """Same transcript state, same lowest hitting nonce, same next draw,

@@ -9,8 +9,10 @@ lengths as ``c_longlong``.
 
 Every C entry point launches on the given stream (PyTorch's current
 one), does not synchronise, and returns ``cudaGetLastError()``; ``launch``
-raises if that is not 0.  ``launches`` holds one plain count per kernel,
-raised by one where the kernel is launched and nowhere else.
+raises if that is not 0.  One exception: ``p2_grind`` returns a host
+value (the nonce), so it waits for its stream before it returns.
+``launches`` holds one plain count per kernel, raised by one where the
+kernel is launched and nowhere else.
 
 Generated sources (the quotient's parts, ``prover/quotient_codegen.py``)
 are compiled by ``build_generated`` with the same nvcc and flags, each
@@ -50,7 +52,10 @@ _SIGNATURES = {
     "p2_permute": (_P, _P, _N),
     "p2_sponge_rows": (_P, _P, _N, _N, _I),
     "p2_compress_level": (_P, _P, _N),
-    # state, bits, start nonce, nonce limit, result
+    # leaves, levels 1.. in one buffer, leaf count
+    "p2_merkle_tree": (_P, _P, _N),
+    # host state (16 uint32), bits, start nonce, nonce limit, host nonce
+    # (int64; the entry point synchronises)
     "p2_grind": (_P, _I, _N, _N, _P),
     # host descriptor (csrc/interp.cu's enum)
     "interp_run": (_P,),

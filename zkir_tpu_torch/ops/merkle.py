@@ -4,7 +4,10 @@ Counterpart of ``zkir_tpu/ops/merkle.py``.  Leaf digests are Poseidon2
 sponge hashes of matrix rows, internal nodes the 2-to-1 compression;
 digests are 8 canonical words (int64 ``[..., 8]`` on the device, numpy
 ``uint32`` on the host).  On a GPU, ``hash_rows`` is one launch of K2's
-row sponge and each tree level one launch of its level compression.
+row sponge and ``build_tree`` one launch of its whole-tree kernel
+(``p2_merkle_tree``), which writes every internal level into one
+``[n - 1, 8]`` buffer; the levels are views of it, and ``to_host`` copies
+it in one piece.
 
 ``RowSponge`` (column-streamed leaf hashing) is not ported yet: it
 serves the streaming prover only.
@@ -18,8 +21,8 @@ import numpy as np
 import torch
 
 from ..spec.field import M31_PRIME
-from .poseidon2 import (_sponge_rows, poseidon2_compress_batch,
-                        poseidon2_compress_level)
+from .poseidon2 import (_check_words, _sponge_rows, compress_level_plain,
+                        poseidon2_compress_batch)
 from .poseidon2_ref import RATE
 
 DIGEST_WIDTH = RATE  # 8 field elements
@@ -33,29 +36,81 @@ def hash_rows(matrix) -> torch.Tensor:
     return _sponge_rows(matrix, pad=True)
 
 
+def _level_views(nodes, n: int) -> List[torch.Tensor]:
+    """Levels 1 .. log2 n as views of the [n - 1, 8] buffer ``nodes``:
+    level j (n >> j rows) from row n - (n >> (j - 1)), the root last."""
+    views, row, m = [], 0, n // 2
+    while m:
+        views.append(nodes[row:row + m])
+        row, m = row + m, m // 2
+    return views
+
+
 def build_tree(leaves) -> List[torch.Tensor]:
     """Merkle tree levels from leaf digests [n, 8] (n a power of 2):
-    levels[0] = leaves .. levels[-1] = the [1, 8] root."""
+    levels[0] = leaves .. levels[-1] = the [1, 8] root.  Levels 1.. are
+    views of one [n - 1, 8] buffer; on a GPU one ``p2_merkle_tree``
+    launch fills it."""
     n = leaves.shape[0]
     assert n & (n - 1) == 0, "leaf count must be a power of two"
-    levels = [leaves]
+    if not leaves.is_cuda:
+        return build_tree_plain(leaves)
+    from .. import _kernels
+
+    leaves = _check_words(leaves, DIGEST_WIDTH)
+    nodes = torch.empty((max(n - 1, 0), DIGEST_WIDTH), dtype=torch.int64,
+                        device=leaves.device)
+    if n > 1:
+        _kernels.launch("p2_merkle_tree", leaves.data_ptr(), nodes.data_ptr(),
+                        n)
+    return [leaves] + _level_views(nodes, n)
+
+
+def build_tree_plain(leaves) -> List[torch.Tensor]:
+    """``build_tree`` in plain torch: ``compress_level_plain`` level by
+    level into the same single buffer, returned through the same views."""
+    n = leaves.shape[0]
+    nodes = torch.empty((max(n - 1, 0), DIGEST_WIDTH), dtype=torch.int64,
+                        device=leaves.device)
+    views = _level_views(nodes, n)
     cur = leaves
-    while cur.shape[0] > 1:
-        cur = poseidon2_compress_level(cur)
-        levels.append(cur)
-    return levels
+    for view in views:
+        view.copy_(compress_level_plain(cur))
+        cur = view
+    return [leaves] + views
 
 
 def build_tree_fused(leaves) -> List[torch.Tensor]:
-    """The same levels as ``build_tree`` (the reference fuses the levels
-    into one XLA program; here each level is already one launch)."""
+    """The same levels as ``build_tree``, which already builds a tree in
+    one launch (the reference's ``build_tree_fused`` fuses its per-level
+    dispatches into one XLA program)."""
     return build_tree(leaves)
 
 
 def to_host(levels) -> List[np.ndarray]:
     """Tree levels as host uint32 arrays (path opening is host-side
-    random access)."""
-    return [lv.cpu().numpy().astype(np.uint32) for lv in levels]
+    random access): the leaves in one copy, the internal levels, views of
+    one buffer as ``build_tree`` returns them, in one more."""
+    out = [levels[0].cpu().numpy().astype(np.uint32)]
+    if len(levels) == 1:
+        return out
+    first = levels[1]
+    storage = first.untyped_storage().data_ptr()
+    row = 0
+    for level in levels[1:]:
+        at = first.data_ptr() + level.element_size() * DIGEST_WIDTH * row
+        if level.untyped_storage().data_ptr() != storage \
+                or level.data_ptr() != at or not level.is_contiguous():
+            raise ValueError("tree levels are not views of one buffer, as "
+                             "build_tree returns them")
+        row += level.shape[0]
+    nodes = first.as_strided((row, DIGEST_WIDTH), (DIGEST_WIDTH, 1))
+    host = nodes.cpu().numpy().astype(np.uint32)
+    row = 0
+    for level in levels[1:]:
+        out.append(host[row:row + level.shape[0]])
+        row += level.shape[0]
+    return out
 
 
 def root(levels) -> np.ndarray:

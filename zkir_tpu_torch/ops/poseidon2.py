@@ -7,12 +7,14 @@ launches kernel K2 (``csrc/poseidon2.cu``):
 - ``poseidon2_permute_batch``: ``p2_permute``, one thread per state;
 - ``poseidon2_sponge_batch`` / ``merkle.hash_rows``: ``p2_sponge_rows``,
   one thread absorbing a whole row;
-- ``poseidon2_compress_level`` (and ``merkle.build_tree``):
-  ``p2_compress_level``, one tree level per launch;
+- ``poseidon2_compress_level`` / ``poseidon2_compress_batch``:
+  ``p2_compress_level``, one tree level per launch (``merkle.build_tree``
+  builds a whole tree in one launch of ``p2_merkle_tree``);
 - ``sponge_hash_bytes_batch`` (the interpreter's Poseidon2 syscalls, all
   paused lanes at once): ``p2_permute`` per block position;
 - ``grind``: ``p2_grind``, the transcript's proof-of-work search in one
-  launch (16 words up, one word down).
+  host call (the 16 words go up as a launch parameter, the nonce comes
+  back through a pinned word).
 
 On the CPU they run the plain versions below, which follow the
 reference's ``[16, N]`` layout (``_permute_t``): the batch on the minor
@@ -23,6 +25,7 @@ integer arithmetic (exact int64 sums and products, reduced mod p with
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -255,22 +258,23 @@ def poseidon2_compress_batch(left, right):
 
 
 def grind(state, bits: int, device) -> int:
-    """The proof-of-work nonce for the sponge state ``state`` (16 words)
-    and ``bits`` >= 1 (see ``grind_plain``).  On a CUDA device one launch
-    of ``p2_grind`` searches, each thread forming its candidates in
-    registers; on the CPU the plain version does."""
+    """The proof-of-work nonce for the sponge state ``state`` (16
+    canonical words) and ``bits`` in 1..31 (see ``grind_plain``).  On a
+    CUDA device one call of ``p2_grind`` searches, each thread forming its
+    candidates in registers, and returns the nonce; on the CPU the plain
+    version does."""
+    words = [int(w) for w in state]
+    if len(words) != WIDTH or not 1 <= bits <= 31 \
+            or not all(0 <= w < P for w in words):
+        raise ValueError(f"grind takes {WIDTH} canonical words and 1..31 "
+                         "bits")
     if torch.device(device).type != "cuda":
-        return grind_plain(state, bits, device)
+        return grind_plain(words, bits, device)
     from .. import _kernels
 
-    if len(state) != WIDTH or not 1 <= bits <= 31:
-        raise ValueError(f"grind takes {WIDTH} words and 1..31 bits")
-    words = torch.tensor([int(w) for w in state], dtype=torch.int64,
-                         device=device)
-    result = torch.full((1,), -1, dtype=torch.int64, device=device)
-    _kernels.launch("p2_grind", words.data_ptr(), bits, 0, GRIND_LIMIT,
-                    result.data_ptr())
-    nonce = int(result.item())
-    if nonce < 0:
+    nonce = ctypes.c_longlong(-1)
+    _kernels.launch("p2_grind", (ctypes.c_uint32 * WIDTH)(*words), bits, 0,
+                    GRIND_LIMIT, ctypes.byref(nonce))
+    if nonce.value < 0:
         raise RuntimeError("grinding search exhausted")  # pragma: no cover
-    return nonce
+    return nonce.value
