@@ -13,8 +13,10 @@ path):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
-   then generate and build the quotient's kernels for its three feature
-   sets from an empty build directory (the cold compile), and load them
+   then generate and build the quotient's kernels for its five plans
+   (three feature sets on the whole LDE domain, the two of the streaming
+   prover on one coset at log_blowup 0) from an empty build directory
+   (the cold compile), and load them
    once more in a fresh process (the warm load); print each part's
    stages, global column reads a point, shared memory, registers,
    spills and SASS instructions, and each quotient helper's instructions
@@ -69,17 +71,33 @@ path):
    ``p2_merkle_tree`` launch with no ``p2_compress_level``, and the NTT
    family must launch nothing but ``cm31_ntt``; no prove may compile a
    quotient kernel (one build serves every proof of a feature set);
-8. the CLI as a user runs it, in subprocesses of ``python3 -m
+8. the streaming prover: ``p2_sponge_absorb`` against its plain version
+   at [2^18, 128 words] from zero and non-zero states, with and without
+   the padding block, and at odd widths (timed beside its bound); goldens
+   C and E proved by ``prove_trace_streaming`` on the card, equal to the
+   stored proofs and verified; the 2^16 main path's matrix proved by
+   streaming (blocks of 64 columns), equal to phase 7's one-shot proof
+   and verified, with no quotient compile, one ``p2_merkle_tree`` launch
+   a tree, no kernel outside the prover's (the NTT family only
+   ``cm31_ntt``) and no plain version run on a card tensor; the quotient
+   on one coset (log_blowup 0) against the plain version on golden E's
+   and the 2^16 main path's inputs; then ``exact_trace_program(20)``
+   interpreted on the card, proved by streaming with its program bound
+   and verified (peak device memory, seconds, rows per second);
+9. the CLI as a user runs it, in subprocesses of ``python3 -m
    zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with both
    engines (native: the reference's line and exit code at a cycle limit;
    gpu), ``prove``
    with and without ``--bind`` (proofs JSON-equal to goldens D and A),
-   ``verify`` (accepting, and refusing another program), and ``prove
-   --checkpoint-dir`` resumed after its last stage's file was deleted.
+   ``prove --streaming --bind`` (golden D again) and ``--streaming
+   --checkpoint-dir`` (refused), ``verify`` (accepting, and refusing
+   another program), and ``prove --checkpoint-dir`` resumed after its
+   last stage's file was deleted.
 
 The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
-run of phase 7, for ``p2_permute`` the syscall run of phase 5, and 0 for
+run of phase 7, for ``p2_permute`` the syscall run of phase 5, for
+``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
 ``p2_compress_level``, which no path launches any more; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
@@ -99,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
@@ -128,6 +147,8 @@ KERNELS = {
                    "zkir_tpu/ops/poseidon2.py:261"),
     "p2_sponge_rows": ("zkir_tpu_torch/csrc/poseidon2.cu",
                        "zkir_tpu/ops/poseidon2.py:261"),
+    "p2_sponge_absorb": ("zkir_tpu_torch/csrc/poseidon2.cu",
+                         "zkir_tpu/ops/poseidon2.py:261"),
     "p2_compress_level": ("zkir_tpu_torch/csrc/poseidon2.cu",
                           "zkir_tpu/ops/poseidon2.py:261"),
     "p2_merkle_tree": ("zkir_tpu_torch/csrc/poseidon2.cu",
@@ -143,17 +164,26 @@ KERNELS = {
     "quotient_part": ("zkir_tpu_torch/prover/quotient_codegen.py",
                       "zkir_tpu/prover/constraints.py:2683"),
 }
-# The quotient's feature sets: (lookup, aux, memory, io, crypto, program).
-QUOTIENT_SETS = {"main path": (True,) * 6,
-                 "range_lookup, no program": (True,) * 5 + (False,),
-                 "range_lookup=False": (False,) * 6}
-QUOTIENT_LOG_BLOWUP = 2      # FriConfig()'s, and every golden's
+# The quotient's plans: a feature set (lookup, aux, memory, io, crypto,
+# program) at a log_blowup.  The one-shot prover evaluates the quotient on
+# the whole LDE domain (FriConfig()'s log_blowup 2, every golden's); the
+# streaming prover on one interleaved coset at a time, at log_blowup 0
+# (the next row one point on), always with range_lookup.
+QUOTIENT_PLANS = {
+    "main path": ((True,) * 6, 2),
+    "range_lookup, no program": ((True,) * 5 + (False,), 2),
+    "range_lookup=False": ((False,) * 6, 2),
+    "main path, one coset": ((True,) * 6, 0),
+    "range_lookup, no program, one coset": ((True,) * 5 + (False,), 0)}
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
-# to the interpreter's Poseidon2 syscalls, and p2_compress_level (one tree
-# level) to no path since p2_merkle_tree builds each tree in one launch.
-MAIN_PATH_KERNELS = [k for k in KERNELS
-                     if k not in ("p2_permute", "p2_compress_level")]
+# to the interpreter's Poseidon2 syscalls, p2_sponge_absorb to the
+# streaming prover, and p2_compress_level (one tree level) to no path
+# since p2_merkle_tree builds each tree in one launch.
+MAIN_PATH_KERNELS = [k for k in KERNELS if k not in (
+    "p2_permute", "p2_compress_level", "p2_sponge_absorb")]
 PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
+# The kernels a streaming prove must launch.
+STREAMING_KERNELS = PROVER_KERNELS + ["p2_sponge_absorb"]
 # Instructions every cycle executes in the interpreter kernel, whatever its
 # opcode: a floor, zkir_tpu_torch/tools/sass_count.py --floor on the
 # older kernel, a thread per lane decoding each word every cycle (1,784
@@ -1127,10 +1157,22 @@ def phase_cli() -> dict:
         _, _, stats["cli_prove_s"] = run_cli(tmp, "prove", "fib.zkir",
                                              "--input", "10", "-o", "a.json")
         same(tmp / "a.json", "golden_a")
+        out, _, stats["cli_prove_streaming_bind_s"] = run_cli(
+            tmp, "prove", fib, "--input", "10", "--streaming", "--bind",
+            "-o", "ds.json")
+        if out.strip() != "proved 62 trace rows (62 cycles) -> ds.json":
+            raise AssertionError(f"prove --streaming --bind: {out}")
+        same(tmp / "ds.json", "golden_d")
+        _, err, _ = run_cli(tmp, "prove", fib, "--input", "10", "--streaming",
+                            "--checkpoint-dir", "sck", expect=1)
+        if "writes no stage checkpoints" not in err or (tmp / "sck").exists():
+            raise AssertionError(f"prove --streaming --checkpoint-dir: {err}")
         log("CLI: asm, disasm, run (native and gpu engines, with and "
             "without a cycle limit, gpu the default, native refused with "
-            "--device cuda), prove (goldens D and A reproduced), "
-            "verify VALID / INVALID with another program")
+            "--device cuda), prove (goldens D and A reproduced; golden D "
+            "also by --streaming --bind, and --streaming refusing "
+            "--checkpoint-dir), verify VALID / INVALID with another "
+            "program")
 
         # A checkpointed prove, resumed after its last stage was lost.
         ck = ["prove", fib, "--input", "10", "--bind", "--checkpoint-dir",
@@ -1155,10 +1197,11 @@ def phase_cli() -> dict:
 
 
 def phase_quotient_build() -> dict:
-    """Generate and build the quotient's kernels for its three feature
-    sets from an empty build directory (every part at once, one nvcc
-    each), then time their load in a fresh process with the libraries
-    built; each part's stages, global column reads a
+    """Generate and build the quotient's kernels for its plans (three
+    feature sets on the whole LDE domain, two on one coset) from an empty
+    build directory (every part at once, one nvcc each), then time their
+    load in a fresh process with the libraries built; each part's stages,
+    global column reads a
     point (the staging plan's copies and the 1/Z rows), shared memory,
     registers, spills (``-Xptxas -v``) and SASS instructions
     (``tools/sass_count.py``); and each helper's instructions, which the
@@ -1170,7 +1213,7 @@ def phase_quotient_build() -> dict:
     from zkir_tpu_torch.tools.sass_count import (helper_instructions,
                                                  instructions)
 
-    keys = [(f, QUOTIENT_LOG_BLOWUP) for f in QUOTIENT_SETS.values()]
+    keys = list(QUOTIENT_PLANS.values())
     shutil.rmtree(qc.BUILD, ignore_errors=True)
     t0 = time.perf_counter()
     qc.prepare(*keys)
@@ -1187,8 +1230,23 @@ def phase_quotient_build() -> dict:
     if int(recompiled):
         raise AssertionError(f"the warm load compiled {recompiled} parts")
     cuobjdump = pathlib.Path(_kernels._nvcc()).parent / "cuobjdump"
+
+    def sass_instructions(base):
+        sass = base.with_suffix(".sass")
+        sass.write_text(subprocess.run(
+            [str(cuobjdump), "-sass", str(base.with_suffix(".so"))],
+            capture_output=True, text=True, check=True).stdout)
+        return len(instructions(sass, "quotient_part_kernel"))
+
+    # Each part's SASS, one cuobjdump a part, as many at once as the host
+    # has cores (a part's dump takes seconds).
+    bases = sorted({qc.BUILD / f"part_{part.key}"
+                    for key in QUOTIENT_PLANS.values()
+                    for part in qc.prepare(key)[0].parts})
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        sass_counts = dict(zip(bases, pool.map(sass_instructions, bases)))
     parts = {}
-    for name, key in zip(QUOTIENT_SETS, keys):
+    for name, key in QUOTIENT_PLANS.items():
         kernel = qc.prepare(key)[0]
         rows = []
         for part in kernel.parts:
@@ -1197,11 +1255,7 @@ def phase_quotient_build() -> dict:
             regs = re.search(r"Used (\d+) registers", ptxas)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", ptxas)
-            sass = base.with_suffix(".sass")
-            sass.write_text(subprocess.run(
-                [str(cuobjdump), "-sass", str(base.with_suffix(".so"))],
-                capture_output=True, text=True, check=True).stdout)
-            span = qc.TILE + (1 << QUOTIENT_LOG_BLOWUP)
+            span = qc.TILE + (1 << key[1])
             rows.append({
                 "terms": [part.lo, part.hi], "stages": len(part.stages),
                 "m31_ops": part.n_ops, "reads": part.reads,
@@ -1209,7 +1263,7 @@ def phase_quotient_build() -> dict:
                 "smem_bytes": 4 * span * part.staging.slots,
                 "registers": int(regs[1]),
                 "spill_stores": int(spill[1]), "spill_loads": int(spill[2]),
-                "sass": len(instructions(sass, "quotient_part_kernel"))})
+                "sass": sass_counts[base]})
         parts[name] = rows
         log(f"quotient {name}: {len(rows)} parts, a launch each, "
             f"{sum(r['reads'] for r in rows)} global column reads a point; "
@@ -1231,23 +1285,25 @@ def phase_quotient_build() -> dict:
 
 
 @contextlib.contextmanager
-def quotient_calls():
-    """The arguments of every quotient evaluation the prover makes inside
-    the block, in a list."""
+def quotient_calls(module=None):
+    """The arguments of every quotient evaluation the prover (``module``:
+    ``prover.prover`` by default, or ``prover.streaming``) makes inside the
+    block, in a list."""
     from zkir_tpu_torch.prover import prover as prover_mod
 
+    module = module or prover_mod
     calls = []
-    real = prover_mod.quotient_evals
+    real = module.quotient_evals
 
     def spy(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
 
-    prover_mod.quotient_evals = spy
+    module.quotient_evals = spy
     try:
         yield calls
     finally:
-        prover_mod.quotient_evals = real
+        module.quotient_evals = real
 
 
 def quotient_bytes(kernel, n: int) -> int:
@@ -1288,9 +1344,12 @@ def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
     from zkir_tpu_torch.prover import quotient_codegen as qc
 
     args, kwargs = call
-    if args[3] != QUOTIENT_LOG_BLOWUP:
-        raise AssertionError(f"quotient of {what}: log_blowup {args[3]}")
-    kernel = qc.prepare((qc.features_of(kwargs), args[3]))[0]
+    plan = (qc.features_of({**dict.fromkeys(qc.FEATURES), **kwargs}),
+            args[3])
+    name = next((k for k, v in QUOTIENT_PLANS.items() if v == plan), None)
+    if name is None:
+        raise AssertionError(f"quotient of {what}: no plan {plan} was built")
+    kernel = qc.prepare(plan)[0]
     torch.cuda.synchronize()
     _kernels.reset_launches()
     cs.quotient_evals(*args, **kwargs)
@@ -1300,7 +1359,6 @@ def compare_quotient(what, call, results, quotient_stats, key=None) -> None:
         raise AssertionError(f"quotient of {what}: launched {launched}, "
                              f"{len(kernel.parts)} parts")
     n = args[0].shape[1]
-    name = next(k for k, f in QUOTIENT_SETS.items() if f == kernel.features)
     rows = quotient_stats["parts"][name]
     reads = sum(p.reads for p in kernel.parts)
     ops = quotient_ops(kernel, quotient_stats["helper_instructions"])
@@ -1491,7 +1549,9 @@ def counted(prove, kernels):
     return proof, seconds, launches
 
 
-def phase_full(results, quotient_stats) -> dict:
+def phase_full(results, quotient_stats):
+    """The 2^16 proves (phases 6 and 7): their figures, and the main path's
+    matrix, program and proof for the streaming phase."""
     import torch
 
     from zkir_tpu_torch import _kernels
@@ -1645,7 +1705,246 @@ def phase_full(results, quotient_stats) -> dict:
         log(f"{key}: first {first_s:.3f} s, warm {warm_s:.3f} s "
             f"({rows / warm_s:.1f} rows/s), verify {verify_s:.3f} s (True), "
             f"peak device memory {peak / 2**30:.3f} GiB")
+        if bound_program is not None:
+            main_path = {"matrix": matrix, "program": program,
+                         "proof": proof}
         del proof, warm
+    return stats, main_path
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Every call, inside the block, of a kernel's plain version with a
+    tensor on the card, by name, in a list: a path that is to run on the
+    card's kernels must leave it empty."""
+    from zkir_tpu_torch.ops import field_ops, merkle, ntt
+    from zkir_tpu_torch.ops import poseidon2 as p2
+    from zkir_tpu_torch.prover import constraints
+
+    calls = []
+
+    def on_card(values):
+        for v in values:
+            if isinstance(v, (tuple, list)):
+                if on_card(v):
+                    return True
+            elif getattr(v, "is_cuda", False):
+                return True
+        return False
+
+    def spy(name, real):
+        def plain(*args, **kwargs):
+            if on_card(list(args) + list(kwargs.values())):
+                calls.append(name)
+            return real(*args, **kwargs)
+        return plain
+
+    patched = [(ntt, "ntt_plain"), (merkle, "build_tree_plain"),
+               (constraints, "quotient_evals_plain")]
+    patched += [(p2, name) for name in (
+        "permute_plain", "sponge_rows_plain", "sponge_absorb_plain",
+        "compress_level_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    tables = [field_ops._PLAIN, field_ops._CM31_PLAIN]
+    saved_tables = [dict(t) for t in tables]
+    for mod, name, real in saved:
+        setattr(mod, name, spy(name, real))
+    for table, label in zip(tables, ("m31", "cm31")):
+        for op, real in list(table.items()):
+            table[op] = spy(f"{label} {op}", real)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+        for table, old in zip(tables, saved_tables):
+            table.update(old)
+
+
+def phase_sponge_absorb(results) -> None:
+    """``p2_sponge_absorb`` against ``sponge_absorb_plain``, exactly: at
+    [2^18 rows, 128 words] (a 64-column block of 2^18 points) from zero
+    and from non-zero states, with and without the padding block, and at
+    odd widths with the padding; timed beside its bound at that shape and
+    at the 2^16 streaming prove's [2^16, 128]."""
+    import torch
+
+    from zkir_tpu_torch.ops import poseidon2 as p2
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+
+    def check(what, states, blocks, pad):
+        got = states.clone()
+        p2.sponge_absorb(got, blocks, pad)
+        want = p2.sponge_absorb_plain(states, blocks, pad)
+        torch.cuda.synchronize()
+        return max_abs_err(f"p2_sponge_absorb {what}", got, want)
+
+    n = 1 << 18
+    blocks = words(gen, (n, 128))
+    err = 0
+    for label, states in (
+            ("zero", torch.zeros((n, 16), dtype=torch.int64, device="cuda")),
+            ("non-zero", words(gen, (n, 16)))):
+        for pad in (False, True):
+            err = max(err, check(f"[2^18, 128] from {label} states, "
+                                 f"pad={pad}", states, blocks, pad))
+    for rows, width in ((4099, 1), (4099, 7), (999, 92), (1 << 12, 1191),
+                        (1 << 12, 0)):
+        err = max(err, check(f"[{rows}, {width}], pad", words(gen, (rows, 16)),
+                             words(gen, (rows, width)), True))
+    log("p2_sponge_absorb: exact against its plain version at [2^18, 128] "
+        "from zero and non-zero states with and without padding, and at "
+        "odd widths with padding")
+    perm = P2_INSTR_PER_PERMUTATION
+    for rows, key in ((n, "p2_sponge_absorb"),
+                      (1 << 16, "p2_sponge_absorb [2^16, 128]")):
+        states = words(gen, (rows, 16))
+        x = blocks[:rows]
+        ms = cuda_ms(lambda: p2.sponge_absorb(states, x, False), 10)
+        plain_ms = cuda_ms(lambda: p2.sponge_absorb_plain(states, x, False),
+                           2)
+        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **bound(8 * (2 * rows * 16 + rows * 128),
+                                perm * rows * 16),
+                        "library_ms": None}
+        r = results[key]
+        log(f"{key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ([{rows}, 128] from "
+            f"non-zero states, no padding)")
+
+
+def phase_streaming(results, quotient_stats, main_path) -> dict:
+    """The streaming prover on the card: ``p2_sponge_absorb`` against its
+    plain version; goldens C and E proved by streaming, equal to the
+    stored proofs and verified; the 2^16 main path proved by streaming,
+    equal to the one-shot proof, verified, through the card's kernels
+    only; the quotient on one coset (log_blowup 0) against the plain
+    version on golden E's and the 2^16 main path's inputs; and a 2^20-row
+    trace interpreted on the card, proved by streaming with its program
+    bound and verified."""
+    import numpy as np
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.convert import fixture_from_reference, proof_to_json
+    from zkir_tpu_torch.interp import InterpConfig, TpuInterpreter
+    from zkir_tpu_torch.prover import (FriConfig, quotient_codegen,
+                                       streaming, trace_to_matrix,
+                                       verify_trace)
+    from zkir_tpu_torch.prover.benchtrace import exact_trace_program
+
+    phase_sponge_absorb(results)
+    stats = {}
+    for name, col_block in (("c", 37), ("e", 64)):
+        fx = fixture_from_reference(FIXTURES, f"golden_{name}")
+        t0 = time.perf_counter()
+        with quotient_calls(streaming) as calls, plain_calls() as plain:
+            proof = streaming.prove_trace_streaming(
+                fx["matrix"], fx["config"], program=fx["program"],
+                col_block=col_block, device="cuda")
+        dt = time.perf_counter() - t0
+        if plain:
+            raise AssertionError(f"streaming golden {name} ran plain "
+                                 f"versions on the card: {sorted(set(plain))}")
+        if len(calls) != 4 or any(c[0][3] != 0 for c in calls):
+            raise AssertionError(f"streaming golden {name}: quotient calls "
+                                 f"{[c[0][3] for c in calls]}")
+        if name == "e":
+            compare_quotient("golden e, one coset", calls[0], results,
+                             quotient_stats)
+        del calls
+        if json.loads(proof_to_json(proof)) != fx["want"]:
+            raise AssertionError(f"streaming golden {name}: proof differs "
+                                 "from the reference proof")
+        if not verify_trace(proof, fx["program"], device="cuda"):
+            raise AssertionError(f"streaming golden {name}: the port's "
+                                 "verifier rejects the proof")
+        log(f"streaming golden {name} (col_block {col_block}): proof equal "
+            f"to the reference and verified ({dt:.3f} s)")
+
+    # The 2^16 main path by streaming: the same proof as the one-shot
+    # prove of phase 7, verified, through the card's kernels only.
+    def prove():
+        return streaming.prove_trace_streaming(
+            main_path["matrix"], FriConfig(), program=main_path["program"],
+            col_block=64, device="cuda")
+
+    compiled = quotient_codegen.compiles
+    with quotient_calls(streaming) as calls, plain_calls() as plain:
+        proof, first_s, launches = counted(prove, STREAMING_KERNELS)
+    if plain:
+        raise AssertionError(f"the 2^16 streaming prove ran plain versions "
+                             f"on the card: {sorted(set(plain))}")
+    if quotient_codegen.compiles != compiled:
+        raise AssertionError("the streaming prove compiled quotient parts")
+    others = {k for k, v in launches.items() if v} - set(STREAMING_KERNELS)
+    if others:
+        raise AssertionError(f"the streaming prove launched {others}")
+    compare_quotient("main path, one coset [2^16]", calls[0], results,
+                     quotient_stats, key="quotient_part one coset")
+    del calls
+    if proof != main_path["proof"]:
+        raise AssertionError("the 2^16 streaming proof differs from the "
+                             "one-shot proof")
+    warm, warm_s, stages, peak = logged_prove(prove)
+    if warm != proof:
+        raise AssertionError("the 2^16 streaming proves differ")
+    t0 = time.perf_counter()
+    if not verify_trace(proof, main_path["program"], device="cuda"):
+        raise AssertionError("the port's verifier rejects the 2^16 streaming "
+                             "proof")
+    verify_s = time.perf_counter() - t0
+    rows = main_path["matrix"].shape[0]
+    stats["stream_2e16_bound"] = {
+        "rows": rows, "col_block": 64, "prove_first_s": first_s,
+        "prove_warm_s": warm_s, "rows_per_s_warm": rows / warm_s,
+        "verify_s": verify_s, "peak_bytes": peak, "stages_warm_s": stages,
+        "launches": launches}
+    log(f"stream_2e16_bound: proof equal to the one-shot proof and verified; "
+        f"first {first_s:.3f} s, warm {warm_s:.3f} s ({rows / warm_s:.1f} "
+        f"rows/s), peak device memory {peak / 2**30:.3f} GiB; launches "
+        f"{launches}; warm stages {stages}")
+    del proof, warm
+
+    # 2^20 rows, made on the card and proved by streaming, program bound.
+    log_rows = 20
+    program = exact_trace_program(log_rows)
+    t0 = time.perf_counter()
+    trace = TpuInterpreter(program, InterpConfig(
+        lanes=1, chunk=1024, collect_trace=True), device="cuda").run(
+            [[]], max_cycles=2 << log_rows)["trace"]
+    t1 = time.perf_counter()
+    matrix = trace_to_matrix(trace)
+    matrix_s = time.perf_counter() - t1
+    del trace
+    if matrix.shape[0] != 1 << log_rows or not np.all(matrix[-1, 2] == 0x51):
+        raise AssertionError(f"the 2^{log_rows} trace has shape "
+                             f"{matrix.shape}")
+    big, big_s, big_stages, big_peak = logged_prove(
+        lambda: streaming.prove_trace_streaming(
+            matrix, FriConfig(), program=program, col_block=64,
+            device="cuda"))
+    big_launches = sum(_kernels.launches.values())
+    t0v = time.perf_counter()
+    if not verify_trace(big, program, device="cuda"):
+        raise AssertionError(f"the port's verifier rejects the 2^{log_rows} "
+                             "streaming proof")
+    big_verify_s = time.perf_counter() - t0v
+    stats[f"stream_2e{log_rows}_bound"] = {
+        "rows": matrix.shape[0], "col_block": 64, "run_s": t1 - t0,
+        "matrix_s": matrix_s, "prove_s": big_s,
+        "rows_per_s": matrix.shape[0] / big_s, "verify_s": big_verify_s,
+        "peak_bytes": big_peak, "stages_s": big_stages,
+        "launches": big_launches}
+    log(f"stream_2e{log_rows}_bound: interpreted in {t1 - t0:.3f} s, matrix "
+        f"{matrix_s:.3f} s, proved by streaming in {big_s:.3f} s "
+        f"({matrix.shape[0] / big_s:.1f} rows/s, {big_launches} launches), "
+        f"verified in {big_verify_s:.3f} s; peak device memory "
+        f"{big_peak / 2**30:.3f} GiB; stages {big_stages}")
+    del big, matrix
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -1706,12 +2005,27 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    quotient_stats = phase_quotient_build()
-    phase_kernels(results)
-    phase_goldens(results, quotient_stats)
-    interp_stats = phase_interp(results)
-    stats = {**phase_full(results, quotient_stats), "interp": interp_stats,
-             "cli": phase_cli(), "quotient": quotient_stats}
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    quotient_stats = timed("quotient build", phase_quotient_build)
+    timed("kernels", phase_kernels, results)
+    timed("goldens", phase_goldens, results, quotient_stats)
+    interp_stats = timed("interpreter", phase_interp, results)
+    full_stats, main_path = timed("2^16 proves", phase_full, results,
+                                  quotient_stats)
+    stream_stats = timed("streaming", phase_streaming, results,
+                         quotient_stats, main_path)
+    del main_path
+    stats = {**full_stats, **stream_stats, "interp": interp_stats,
+             "cli": timed("cli", phase_cli), "quotient": quotient_stats,
+             "phase_s": phase_s}
     if quotient_codegen.compiles != quotient_stats["compiled"]:
         raise AssertionError("a prove compiled quotient parts: "
                              f"{quotient_codegen.compiles} compiled, "
@@ -1719,16 +2033,20 @@ def main() -> int:
 
     # launches: the path that owns the kernel (interpret and prove with
     # range_lookup=True and the program bound; for p2_permute the
-    # interpreter's Poseidon2 syscalls); launches_plain_path: the
-    # range_lookup=False prove.
+    # interpreter's Poseidon2 syscalls; for p2_sponge_absorb the 2^16
+    # streaming prove); launches_plain_path: the range_lookup=False
+    # prove; launches_streaming_path: the 2^16 streaming prove.
+    streamed = stats["stream_2e16_bound"]["launches"]
     main_path = dict(stats["prove_2e16_bound"]["launches"],
                      p2_permute=interp_stats["syscall_path_launches"]
-                     ["p2_permute"])
+                     ["p2_permute"],
+                     p2_sponge_absorb=streamed["p2_sponge_absorb"])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": main_path[name],
                 "launches_plain_path":
                     stats["prove_2e16"]["launches"][name],
+                "launches_streaming_path": streamed[name],
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}

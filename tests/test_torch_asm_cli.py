@@ -184,8 +184,20 @@ def test_prove_without_bind_reproduces_golden_a(tmp_path, capsys):
     assert capsys.readouterr().out.endswith("VALID\n")
 
 
+def test_prove_streaming_bind_reproduces_golden_d(tmp_path, capsys):
+    """The streaming prover behind ``--streaming``: the same proof, the
+    same printed line."""
+    path = tmp_path / "ds.json"
+    assert cli("prove", FIB, "--input", "10", "--streaming", "--bind",
+               "--col-block", "100", "-o", str(path)) == 0
+    assert capsys.readouterr().out == \
+        f"proved 62 trace rows (62 cycles) -> {path}\n"
+    want = json.loads((FIXTURES / "golden_d.proof.json").read_text())
+    assert json.loads(path.read_text()) == want
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--streaming"], "ROADMAP Queue 1: the streaming prover"),
+    (["--streaming", "--mesh", "4"], "ROADMAP Queue 1: multi-GPU"),
     (["--mesh", "4"], "ROADMAP Queue 1: multi-GPU")])
 def test_unported_prove_options_name_their_roadmap_items(flag, item):
     with pytest.raises(NotImplementedError, match=item):

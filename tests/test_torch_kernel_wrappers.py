@@ -285,7 +285,7 @@ def test_every_entry_point_has_its_c_function():
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert set(_kernels._SIGNATURES) <= defined
     assert set(_kernels.launches) == {*_kernels._SIGNATURES, "quotient_part"}
-    assert len(_kernels._SIGNATURES) == 9
+    assert len(_kernels._SIGNATURES) == 10
 
 
 def test_sponge_hash_bytes_batch_equals_the_scalar_sponge():

@@ -22,7 +22,8 @@ import zkir_tpu_torch.spec.config, zkir_tpu_torch.spec.program
 import zkir_tpu_torch.asm, zkir_tpu_torch.cli, zkir_tpu_torch.interp
 import zkir_tpu_torch.interp.checkpoint, zkir_tpu_torch.prover.benchtrace
 import zkir_tpu_torch.tools.fuzz_programs, zkir_tpu_torch.tools.interp_bench
-import zkir_tpu_torch.runtime.native_vm
+import zkir_tpu_torch.runtime.native_vm, zkir_tpu_torch.prover.streaming
+import zkir_tpu_torch.tools.stream_prove
 from zkir_tpu_torch.convert import (fixture_from_reference, proof_from_json,
                                     proof_to_json)
 from zkir_tpu_torch.prover import FriConfig, prove_trace, verify_trace

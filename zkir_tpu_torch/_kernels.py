@@ -51,6 +51,8 @@ _SIGNATURES = {
     "cm31_ntt": (_P, _P, _N, _N, _P, _P, _P, _P, _P, _N, _I, _N),
     "p2_permute": (_P, _P, _N),
     "p2_sponge_rows": (_P, _P, _N, _N, _I),
+    # states [n, 16] (in place), blocks [n, w], n, w, pad
+    "p2_sponge_absorb": (_P, _P, _N, _N, _I),
     "p2_compress_level": (_P, _P, _N),
     # leaves, levels 1.. in one buffer, leaf count
     "p2_merkle_tree": (_P, _P, _N),

@@ -20,9 +20,13 @@ counterpart of the reference's ``tpu``; the default on the card) or
 ``native`` (the reference's default: the C++ core on the host, which stops
 at ``--max-cycles`` and exits 1 on any halt but EBREAK and EXIT; the
 default with ``--device cpu``, and refused with an explicit ``--device
-cuda``).  Not ported: the ``oracle`` engine, ``prove --streaming`` and
-``--mesh`` (they raise ``NotImplementedError`` naming their ROADMAP
-items), and ``warm`` (there is no compile cache to fill).
+cuda``).  ``prove --streaming [--col-block N]`` proves with the
+column-streaming prover (the same proof in less device memory; always the
+full constraint set, the program bound only with ``--bind``); it refuses
+``--checkpoint-dir``, which it would not honour.  Not ported: the
+``oracle`` engine and ``--mesh`` (they raise ``NotImplementedError``
+naming their ROADMAP items), and ``warm`` (there is no compile cache to
+fill).
 """
 
 from __future__ import annotations
@@ -91,14 +95,16 @@ def cmd_prove(args) -> int:
     from .interp import InterpConfig, TpuInterpreter
     from .prover import prove_trace, trace_to_matrix
 
-    if args.streaming:
-        raise NotImplementedError(
-            "prove --streaming is not ported to zkir_tpu_torch yet "
-            "(ROADMAP Queue 1: the streaming prover)")
     if args.mesh:
         raise NotImplementedError(
-            "prove --mesh is not ported to zkir_tpu_torch yet "
-            "(ROADMAP Queue 1: multi-GPU)")
+            f"prove {'--streaming ' if args.streaming else ''}--mesh is not "
+            "ported to zkir_tpu_torch yet (ROADMAP Queue 1: multi-GPU)")
+    if args.streaming and args.checkpoint_dir:
+        raise SystemExit(
+            "error: prove --streaming writes no stage checkpoints (the "
+            "streaming prover does not persist its stages, so a rerun "
+            "could not resume); drop --checkpoint-dir, or prove without "
+            "--streaming to checkpoint")
     device = args.device
     program = _load_program(args.binary)
     inputs = [int(x, 0) for x in args.input]
@@ -106,7 +112,14 @@ def cmd_prove(args) -> int:
         lanes=1, chunk=256, collect_trace=True), device=device)
     result = interp.run([inputs], max_cycles=args.max_cycles)
     matrix = trace_to_matrix(result["trace"], program=program)
-    if args.bind:
+    if args.streaming:
+        # Always the full constraint set; the program bound with --bind.
+        from .prover.streaming import prove_trace_streaming
+
+        proof = prove_trace_streaming(
+            matrix, program=program if args.bind else None,
+            col_block=args.col_block, device=device)
+    elif args.bind:
         proof = prove_trace(matrix, range_lookup=True, program=program,
                             checkpoint_dir=args.checkpoint_dir,
                             device=device)
@@ -189,7 +202,9 @@ def main(argv=None) -> int:
                         "prove rerun with the same inputs resumes past "
                         "completed stages (bit-identical proof)")
     p.add_argument("--streaming", action="store_true",
-                   help="column-streaming prover (not ported yet)")
+                   help="column-streaming prover: the same proof in "
+                        "O(col_block x domain) device memory; always the "
+                        "full constraint set (no --checkpoint-dir)")
     p.add_argument("--col-block", type=int, default=64,
                    help="streaming column block size (default 64)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",

@@ -1,6 +1,7 @@
 // K2: the width-16 Poseidon2 permutation over M31, and the ways the prover
-// feeds it: a row sponge (Merkle leaves), a tree-level compression, a whole
-// Merkle tree in one launch and the transcript's proof-of-work search.
+// feeds it: a row sponge (Merkle leaves) from zero or resumed from stored
+// states (the streaming prover's column blocks), a tree-level compression, a
+// whole Merkle tree in one launch and the transcript's proof-of-work search.
 //
 // Replaces the Pallas kernel `poseidon2_permute_pallas`
 // (zkir_tpu/ops/poseidon2.py, body `_poseidon2_kernel` with
@@ -124,9 +125,15 @@ __global__ void permute_kernel(const int64_t* __restrict__ in,
     for (int k = 0; k < WIDTH; ++k) out[i * WIDTH + k] = (int64_t)x[k];
 }
 
-// Row i of a row-major [n, w] matrix -> its 8-word sponge digest: absorb
-// rate-8 blocks of the row, then (pad != 0) the 1||0* padding, which is
-// appended even when w is a multiple of 8.  With pad == 0, w % 8 == 0.
+// Row i of a row-major [n, w] matrix absorbed by a sponge: rate-8 blocks of
+// the row, then (pad != 0) the 1||0* padding, which is appended even when w
+// is a multiple of 8; with pad == 0, w % 8 == 0.  RESUME == false: the
+// state starts at zero and `out` [n, 8] receives the digest (p2_sponge_rows,
+// the leaves of a Merkle tree).  RESUME == true: `out` [n, 16] holds the
+// states, read before and written after (p2_sponge_absorb, a row sponge fed
+// one column block at a time by the streaming prover; the reference's
+// `_absorb_blocks` and `RowSponge.finalize`).
+template <bool RESUME>
 __global__ void sponge_rows_kernel(const int64_t* __restrict__ mat,
                                    int64_t* __restrict__ out, int64_t n,
                                    int64_t w, int pad) {
@@ -136,7 +143,7 @@ __global__ void sponge_rows_kernel(const int64_t* __restrict__ mat,
     int64_t padded_w = pad ? ((w + 1 + RATE - 1) / RATE) * RATE : w;
     uint32_t x[WIDTH];
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k) x[k] = 0;
+    for (int k = 0; k < WIDTH; ++k) x[k] = RESUME ? (uint32_t)out[i * WIDTH + k] : 0u;
     for (int64_t off = 0; off < padded_w; off += RATE) {
         if (off + RATE <= w) {
 #pragma unroll
@@ -151,8 +158,13 @@ __global__ void sponge_rows_kernel(const int64_t* __restrict__ mat,
         }
         permute(x);
     }
+    if (RESUME) {
 #pragma unroll
-    for (int k = 0; k < RATE; ++k) out[i * RATE + k] = (int64_t)x[k];
+        for (int k = 0; k < WIDTH; ++k) out[i * WIDTH + k] = (int64_t)x[k];
+    } else {
+#pragma unroll
+        for (int k = 0; k < RATE; ++k) out[i * RATE + k] = (int64_t)x[k];
+    }
 }
 
 // One Merkle level: [2m, 8] -> [m, 8], node i = permute(l || r)[:8] + l with
@@ -442,8 +454,19 @@ extern "C" int p2_sponge_rows(const void* mat, void* out, long long n,
     if (n <= 0) return 0;
     if (!pad && w % RATE != 0) return (int)cudaErrorInvalidValue;
     const int threads = 128;
-    sponge_rows_kernel<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    sponge_rows_kernel<false><<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)mat, (int64_t*)out, n, w, pad);
+    return (int)cudaGetLastError();
+}
+
+// states: [n, 16], read and written in place; blocks: [n, w] row-major.
+extern "C" int p2_sponge_absorb(void* states, const void* blocks, long long n,
+                                long long w, int pad, void* stream) {
+    if (n <= 0) return 0;
+    if (w < 0 || (!pad && w % RATE != 0)) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    sponge_rows_kernel<true><<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)blocks, (int64_t*)states, n, w, pad);
     return (int)cudaGetLastError();
 }
 

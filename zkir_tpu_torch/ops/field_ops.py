@@ -37,28 +37,26 @@ _OPS = {"add": 0, "sub": 1, "mul": 2}
 
 
 def add_plain(a, b):
-    s = a + b
-    return torch.where(s >= P, s - P, s)
+    return (a + b) % P
 
 
 def sub_plain(a, b):
-    d = a - b
-    return torch.where(d < 0, d + P, d)
+    """a - b mod p (torch's ``%`` takes the divisor's sign)."""
+    return (a - b) % P
 
 
 def mul_plain(a, b):
-    """One 62-bit product, one Mersenne fold, one conditional subtract:
-    x = hi * 2^31 + lo = hi + lo (mod p), and hi + lo < 2p."""
-    x = a * b
-    r = (x & P) + (x >> 31)
-    return torch.where(r >= P, r - P, r)
+    """One 62-bit product reduced mod p."""
+    return a * b % P
 
 
 def cm31_mul_plain(a, b):
+    """(ar br - ai bi, ar bi + ai br): each coordinate two 62-bit
+    products summed (below 2^63, the negated one as (p - ai) bi) and
+    reduced once."""
     ar, ai = a
     br, bi = b
-    return (sub_plain(mul_plain(ar, br), mul_plain(ai, bi)),
-            add_plain(mul_plain(ar, bi), mul_plain(ai, br)))
+    return ((ar * br + (P - ai) * bi) % P, (ar * bi + ai * br) % P)
 
 
 def cm31_add_plain(a, b):

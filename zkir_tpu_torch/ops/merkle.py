@@ -7,10 +7,10 @@ digests are 8 canonical words (int64 ``[..., 8]`` on the device, numpy
 row sponge and ``build_tree`` one launch of its whole-tree kernel
 (``p2_merkle_tree``), which writes every internal level into one
 ``[n - 1, 8]`` buffer; the levels are views of it, and ``to_host`` copies
-it in one piece.
-
-``RowSponge`` (column-streamed leaf hashing) is not ported yet: it
-serves the streaming prover only.
+it in one piece.  ``RowSponge`` hashes the rows of a matrix fed to it a
+column block at a time (the streaming prover's commits): on a GPU one
+``p2_sponge_absorb`` launch a block, which resumes the rows' sponge states
+in device memory.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ import torch
 
 from ..spec.field import M31_PRIME
 from .poseidon2 import (_check_words, _sponge_rows, compress_level_plain,
-                        poseidon2_compress_batch)
-from .poseidon2_ref import RATE
+                        poseidon2_compress_batch, sponge_absorb)
+from .poseidon2_ref import RATE, WIDTH
 
 DIGEST_WIDTH = RATE  # 8 field elements
 
@@ -34,6 +34,41 @@ def hash_rows(matrix) -> torch.Tensor:
     The sponge's 1||0* padding is always appended, even when w is a
     multiple of 8 (as poseidon2_ref.poseidon2_sponge)."""
     return _sponge_rows(matrix, pad=True)
+
+
+class RowSponge:
+    """Incremental row hashing: feed an [n, w] matrix column chunk by
+    column chunk and get exactly ``hash_rows``'s digests of the whole.
+
+    The streaming prover commits wide matrices one column block at a time
+    (peak device memory O(block x domain), not O(all columns x domain)),
+    with one Merkle tree and one opening path a query however many blocks
+    streamed in.  The states [n, 16] live on ``device``; the words of a
+    chunk that do not fill a rate block wait in ``pending`` for the next
+    chunk, as in the reference."""
+
+    def __init__(self, n: int, *, device):
+        self.n = n
+        self.states = torch.zeros((n, WIDTH), dtype=torch.int64,
+                                  device=device)
+        self.pending = torch.zeros((n, 0), dtype=torch.int64, device=device)
+
+    def absorb(self, chunk) -> None:
+        """Absorb the next columns, int64 [n, c]."""
+        buf = (torch.cat([self.pending, chunk], dim=1)
+               if self.pending.shape[1] else chunk)
+        whole = buf.shape[1] // RATE * RATE
+        if whole:
+            sponge_absorb(self.states,
+                          buf if whole == buf.shape[1] else buf[:, :whole],
+                          pad=False)
+        self.pending = buf[:, whole:].clone()
+
+    def finalize(self) -> torch.Tensor:
+        """Absorb the pending words with the 1||0* padding and return the
+        digests [n, 8].  The sponge is spent after this."""
+        sponge_absorb(self.states, self.pending, pad=True)
+        return self.states[:, :RATE].contiguous()
 
 
 def _level_views(nodes, n: int) -> List[torch.Tensor]:

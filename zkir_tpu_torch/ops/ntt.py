@@ -266,9 +266,26 @@ def _rows(x, what: str):
                      f"strides {x.stride()} is not rows of unit stride")
 
 
+def _out_pair(out, shape, device):
+    """``out`` (a pair of contiguous int64 tensors of ``shape`` on
+    ``device``, e.g. row slices of a larger matrix), or a new pair."""
+    if out is None:
+        re = torch.empty(shape, dtype=torch.int64, device=device)
+        return re, torch.empty_like(re)
+    for t in out:
+        if t.dtype != torch.int64 or tuple(t.shape) != tuple(shape) \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"cm31_ntt: out must be contiguous int64 "
+                             f"{tuple(shape)} on {device}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return out
+
+
 def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
-              scale: int = 1):
-    """One call of the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``)."""
+              scale: int = 1, out=None):
+    """One call of the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``), into
+    ``out`` where given (it must not overlap the input: the kernel keeps
+    its passes' points in ``out``'s storage)."""
     from .. import _kernels
 
     n, in_len = 1 << log_n, re.shape[-1]
@@ -285,8 +302,11 @@ def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
     if im is not None and _rows(im, "im") != row_stride:
         raise ValueError("cm31_ntt: re and im differ in row stride")
     device = re.device
-    out_re = torch.empty(*re.shape[:-1], n, dtype=torch.int64, device=device)
-    out_im = torch.empty_like(out_re)
+    out_re, out_im = _out_pair(out, (*re.shape[:-1], n), device)
+    if out is not None and any(
+            o.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+            for o in out for x in (re, im) if x is not None):
+        raise ValueError("cm31_ntt: out shares storage with the input")
     batch = out_re.numel() // n
     if batch:
         tw = _on_device(("twiddles_u32", (log_n, inverse)), device)
@@ -303,15 +323,23 @@ def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
 
 
 def cm31_ntt(re, im, log_n: int, inverse: bool, pre=None, post=None,
-             scale: int = 1):
+             scale: int = 1, out=None):
     """Radix-2 CM31 transform of ``re`` [+ i ``im``] over the last axis,
     natural order in and out: 2^log_n outputs from ``re.shape[-1]`` <=
     2^log_n inputs (the rest read as zero).  ``im`` may be ``None``.
     ``pre``/``post``: a CM31 scalar s (or ``None``); input/output i is
-    multiplied by s^i.  ``scale``: an M31 constant on every output."""
+    multiplied by s^i.  ``scale``: an M31 constant on every output.
+    ``out``: a pair of contiguous tensors of the output's shape that
+    receive the result (a row slice of a larger matrix is one), apart
+    from the input's storage."""
     if re.is_cuda:
-        return _ntt_cuda(re, im, log_n, inverse, pre, post, scale)
-    return ntt_plain(re, im, log_n, inverse, pre, post, scale)
+        return _ntt_cuda(re, im, log_n, inverse, pre, post, scale, out)
+    res = ntt_plain(re, im, log_n, inverse, pre, post, scale)
+    if out is None:
+        return res
+    for o, r in zip(_out_pair(out, res[0].shape, res[0].device), res):
+        o.copy_(r)
+    return out
 
 
 def _shift_or_none(shift):
@@ -340,10 +368,12 @@ def lde(re, im, log_n: int, log_blowup: int,
                     pre=_shift_or_none(shift))
 
 
-def coset_ntt(re, im, log_n: int, shift: Tuple[int, int] = (1, 0)):
+def coset_ntt(re, im, log_n: int, shift: Tuple[int, int] = (1, 0),
+              out=None):
     """Coefficients -> evaluations on the coset ``shift * <w>``:
-    NTT of (coeff_i * shift^i)."""
-    return cm31_ntt(re, im, log_n, inverse=False, pre=_shift_or_none(shift))
+    NTT of (coeff_i * shift^i), into ``out`` where given (``cm31_ntt``)."""
+    return cm31_ntt(re, im, log_n, inverse=False, pre=_shift_or_none(shift),
+                    out=out)
 
 
 def coset_intt(re, im, log_n: int, shift: Tuple[int, int] = (1, 0)):

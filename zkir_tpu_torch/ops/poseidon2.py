@@ -7,6 +7,9 @@ launches kernel K2 (``csrc/poseidon2.cu``):
 - ``poseidon2_permute_batch``: ``p2_permute``, one thread per state;
 - ``poseidon2_sponge_batch`` / ``merkle.hash_rows``: ``p2_sponge_rows``,
   one thread absorbing a whole row;
+- ``sponge_absorb`` (``merkle.RowSponge``, the streaming prover's row
+  hashing): ``p2_sponge_absorb``, the same thread a row, resumed from and
+  stored to states in device memory;
 - ``poseidon2_compress_level`` / ``poseidon2_compress_batch``:
   ``p2_compress_level``, one tree level per launch (``merkle.build_tree``
   builds a whole tree in one launch of ``p2_merkle_tree``);
@@ -106,9 +109,10 @@ def permute_plain(states):
     return _permute_t(states.T, *params(states.device)).T.contiguous()
 
 
-def sponge_rows_plain(matrix, pad: bool = True):
-    """Digest [n, 8] of each row of [n, w] in plain torch: rate-8 blocks,
-    then (``pad``) the 1||0* padding, always appended."""
+def sponge_absorb_plain(states, matrix, pad: bool):
+    """The row sponges' states [n, 16] after absorbing each row of [n, w]
+    in plain torch: rate-8 blocks, then (``pad``) the 1||0* padding,
+    always appended.  Returns new states; ``states`` is not changed."""
     n, w = matrix.shape
     if pad:
         padded_w = ((w + 1 + RATE - 1) // RATE) * RATE
@@ -116,14 +120,25 @@ def sponge_rows_plain(matrix, pad: bool = True):
                            device=matrix.device)
         tail[:, 0] = 1
         matrix = torch.cat([matrix, tail], dim=1)
+    elif w % RATE:
+        raise ValueError(f"unpadded sponge input of {w} words is not whole "
+                         f"rate-{RATE} blocks")
     cols = matrix.T                                          # [w', n]
     prm = params(matrix.device)
-    state = torch.zeros((WIDTH, n), dtype=torch.int64, device=matrix.device)
+    state = states.T
     for off in range(0, cols.shape[0], RATE):
         state = torch.cat([add_plain(state[:RATE], cols[off:off + RATE]),
                            state[RATE:]], dim=0)
         state = _permute_t(state, *prm)
-    return state[:RATE].T.contiguous()
+    return state.T.contiguous()
+
+
+def sponge_rows_plain(matrix, pad: bool = True):
+    """Digest [n, 8] of each row of [n, w] in plain torch: the sponge from
+    the zero state (``sponge_absorb_plain``), its first 8 words."""
+    zero = torch.zeros((matrix.shape[0], WIDTH), dtype=torch.int64,
+                       device=matrix.device)
+    return sponge_absorb_plain(zero, matrix, pad)[:, :RATE].contiguous()
 
 
 def compress_level_plain(level):
@@ -226,6 +241,38 @@ def _sponge_rows(matrix, pad: bool):
         _kernels.launch("p2_sponge_rows", matrix.data_ptr(), out.data_ptr(),
                         n, w, int(pad))
     return out
+
+
+def sponge_absorb(states, matrix, pad: bool) -> None:
+    """Advance row-sponge states int64 [n, 16] IN PLACE over the words of
+    each row of ``matrix`` [n, w]: its rate-8 blocks in order, then, with
+    ``pad``, the 1||0* padding block (without ``pad``, w is a multiple of
+    8).  The counterpart of the reference's ``_absorb_blocks`` scan and of
+    ``RowSponge.finalize``'s padded last block.  On a GPU one launch of
+    ``p2_sponge_absorb``; on the CPU ``sponge_absorb_plain``."""
+    if states.dtype != torch.int64 or states.dim() != 2 \
+            or states.shape[1] != WIDTH or not states.is_contiguous():
+        raise ValueError(f"sponge states must be contiguous int64 [n, "
+                         f"{WIDTH}]; got {states.dtype} "
+                         f"{tuple(states.shape)}")
+    if matrix.dim() != 2 or matrix.shape[0] != states.shape[0] \
+            or matrix.device != states.device:
+        raise ValueError(f"sponge input {tuple(matrix.shape)} on "
+                         f"{matrix.device} for {states.shape[0]} states on "
+                         f"{states.device}")
+    if not states.is_cuda:
+        states.copy_(sponge_absorb_plain(states, matrix, pad))
+        return
+    from .. import _kernels
+
+    matrix = _check_words(matrix)
+    n, w = matrix.shape
+    if not pad and w % RATE:   # the kernel would refuse it too
+        raise ValueError(f"unpadded sponge input of {w} words is not whole "
+                         f"rate-{RATE} blocks")
+    if n and (w or pad):
+        _kernels.launch("p2_sponge_absorb", states.data_ptr(),
+                        matrix.data_ptr(), n, w, int(pad))
 
 
 def poseidon2_sponge_batch(blocks):

@@ -411,21 +411,49 @@ PROG_F_TERMS = ((COL_OPCODE, 1), (COL_RD, 1 << 7), (COL_RS1, 1 << 11))
 # (EBREAK — "a halted machine keeps halting"), keeping them in-table.
 
 
-def _cm31_inv_np(re: np.ndarray, im: np.ndarray):
-    """Host CM31 inverse of uint32/uint64 arrays: conj(a) / |a|^2, the
-    norm inverted by Fermat (inverses are unique, so this equals the
-    reference's device inversion word for word)."""
-    re = re.astype(np.uint64)
-    im = im.astype(np.uint64)
-    norm = (re * re % P + im * im % P) % P
-    ninv = np.ones_like(norm)
-    base = norm.copy()
+def _m31_inv_np(a: np.ndarray) -> np.ndarray:
+    """Host inverses mod p of a uint64 array (zero to zero), by Montgomery's
+    batch trick over ~sqrt(len) interleaved chains: each step multiplies a
+    whole row of chain heads, and only the chains' products are inverted
+    by Fermat.  Inverses are unique, so the words equal any other
+    inversion's."""
+    a = a.astype(np.uint64) % P
+    m = a.size
+    b = 1 << (max(m - 1, 1).bit_length() // 2)     # chain length
+    rows = -(-m // b)
+    x = np.ones(rows * b, dtype=np.uint64)
+    x[:m] = a.ravel()
+    zero = x == 0
+    x[zero] = 1
+    x = x.reshape(b, rows)             # step j of every chain: row j
+    prefix = np.empty_like(x)
+    acc = np.ones(rows, dtype=np.uint64)
+    for j in range(b):
+        prefix[j] = acc
+        acc = acc * x[j] % P
+    inv = np.ones(rows, dtype=np.uint64)           # 1 / (chain product)
     e = P - 2
     while e:
         if e & 1:
-            ninv = ninv * base % P
-        base = base * base % P
+            inv = inv * acc % P
+        acc = acc * acc % P
         e >>= 1
+    out = np.empty_like(x)
+    for j in range(b - 1, -1, -1):
+        out[j] = inv * prefix[j] % P
+        inv = inv * x[j] % P
+    out = out.reshape(-1)
+    out[zero.reshape(-1)] = 0
+    return out[:m].reshape(a.shape)
+
+
+def _cm31_inv_np(re: np.ndarray, im: np.ndarray):
+    """Host CM31 inverse of uint32/uint64 arrays: conj(a) / |a|^2, the
+    norm inverted by ``_m31_inv_np`` (inverses are unique, so this equals
+    the reference's device inversion word for word)."""
+    re = re.astype(np.uint64)
+    im = im.astype(np.uint64)
+    ninv = _m31_inv_np((re * re % P + im * im % P) % P)
     return re * ninv % P, (P - im) % P * ninv % P
 
 
@@ -435,9 +463,10 @@ def _vanishing_tables(log_n: int, log_blowup: int, shift: Tuple[int, int]):
     (numpy uint32 pairs).
 
     Z_H(x) = x^n - 1 cycles with period 2^log_blowup on the domain (since
-    x_k^n = shift^n * w_b^k with w_b of order blowup); Z_trans divides out
-    the last-row factor (x - w_n^{n-1}); Z_first = x - 1 and
-    Z_last = x - w_n^{n-1} are the single-row boundary divisors."""
+    x_k^n = shift^n * w_b^k with w_b of order blowup; at log_blowup 0, one
+    interleaved coset, it is constant); Z_trans divides out the last-row
+    factor (x - w_n^{n-1}), so 1/Z_trans = Z_last / Z_H; Z_first = x - 1
+    and Z_last = x - w_n^{n-1} are the single-row boundary divisors."""
     n = 1 << log_n
     big = 1 << (log_n + log_blowup)
     blowup = 1 << log_blowup
@@ -448,12 +477,11 @@ def _vanishing_tables(log_n: int, log_blowup: int, shift: Tuple[int, int]):
     for k in range(blowup):
         val = cm31_mul_scalar(shift_n, cm31_pow_scalar(w_b, k))
         zh_cycle.append(((val[0] - 1) % P, val[1]))
-    zh_r = np.tile(np.asarray([v[0] for v in zh_cycle], dtype=np.uint64),
-                   big // blowup)
-    zh_i = np.tile(np.asarray([v[1] for v in zh_cycle], dtype=np.uint64),
-                   big // blowup)
-    # zh[k] depends only on k mod blowup, so the tiling lays the cycle out
-    # in domain order.
+    # zh[k] depends only on k mod blowup: invert the cycle, then tile it
+    # into domain order.
+    zh_inv = tuple(np.tile(c, big // blowup) for c in _cm31_inv_np(
+        np.asarray([v[0] for v in zh_cycle], dtype=np.uint64),
+        np.asarray([v[1] for v in zh_cycle], dtype=np.uint64)))
 
     # x_k = shift * w_N^k over the whole domain.
     twr, twi = _twiddle_table(log_n + log_blowup, inverse=False)
@@ -468,12 +496,9 @@ def _vanishing_tables(log_n: int, log_blowup: int, shift: Tuple[int, int]):
     fr = (xr + P - 1) % P
     fi = xi.copy()
 
-    zh_inv = _cm31_inv_np(zh_r, zh_i)
     zlast_inv = _cm31_inv_np(lr, li)
-    # Z_trans = Z_H / Z_last.
-    zt_r = (zh_r * zlast_inv[0] % P + (P - zh_i) * zlast_inv[1] % P) % P
-    zt_i = (zh_r * zlast_inv[1] % P + zh_i * zlast_inv[0] % P) % P
-    ztrans_inv = _cm31_inv_np(zt_r, zt_i)
+    ztrans_inv = ((lr * zh_inv[0] % P + (P - li) * zh_inv[1] % P) % P,
+                  (lr * zh_inv[1] % P + li * zh_inv[0] % P) % P)
     zfirst_inv = _cm31_inv_np(fr, fi)
     return tuple(a.astype(np.uint32) for a in (
         *zh_inv, *ztrans_inv, *zfirst_inv, *zlast_inv))

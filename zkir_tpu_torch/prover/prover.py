@@ -906,27 +906,39 @@ def _combine_kernel(ar, ai, pw_r, pw_i):
     return tr.sum(dim=0) % P, ti.sum(dim=0) % P
 
 
-def _combine(blocks, alpha):
-    """sum_i alpha^i col_i with a QM31 alpha over the CM31-valued committed
-    columns of ``blocks`` (``(re, im)`` pairs of [C_b, N] tensors, in batch
-    order).  The result is QM31: its a/b coordinates are each one run of
-    the CM31 combine kernel per block.  A field sum is order-free, so each
-    block is contracted against its own slice of the power table and the
-    results are added: no second copy of the columns is made."""
-    n_total = sum(re.shape[0] for re, _ in blocks)
+def _batch_powers(n_total: int, alpha, device) -> torch.Tensor:
+    """alpha^0 .. alpha^(n_total - 1) of a QM31 alpha as int64 [n_total, 4]
+    on ``device``: the batch combination's weights, one per committed
+    column in batch order."""
     pw = np.zeros((n_total, 4), dtype=np.int64)
     power = (1, 0, 0, 0)
     for k in range(n_total):
         pw[k] = power
         power = qm31_mul_scalar(power, alpha)
-    pw = torch.from_numpy(pw).to(blocks[0][0].device)
+    return torch.from_numpy(pw).to(device)
+
+
+def _combine_block(re, im, pw):
+    """sum_c pw_c col_c for CM31 columns [C, N] and QM31 weights pw
+    [C, 4]: the QM31 4-tuple of [N] tensors, its a/b coordinates each one
+    run of the CM31 combine kernel."""
+    return (*_combine_kernel(re, im, pw[:, 0], pw[:, 1]),
+            *_combine_kernel(re, im, pw[:, 2], pw[:, 3]))
+
+
+def _combine(blocks, alpha):
+    """sum_i alpha^i col_i with a QM31 alpha over the CM31-valued committed
+    columns of ``blocks`` (``(re, im)`` pairs of [C_b, N] tensors, in batch
+    order).  A field sum is order-free, so each block is contracted
+    against its own slice of the power table and the results are added:
+    no second copy of the columns is made."""
+    pw = _batch_powers(sum(re.shape[0] for re, _ in blocks), alpha,
+                       blocks[0][0].device)
     acc = None
     at = 0
     for re, im in blocks:
-        p = pw[at:at + re.shape[0]]
+        part = _combine_block(re, im, pw[at:at + re.shape[0]])
         at += re.shape[0]
-        part = (*_combine_kernel(re, im, p[:, 0], p[:, 1]),
-                *_combine_kernel(re, im, p[:, 2], p[:, 3]))
         acc = part if acc is None else qm31_add(acc, part)
     return acc
 
@@ -1045,6 +1057,96 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to zkir_tpu_torch yet (ROADMAP Queue 1: "
         f"{item})")
+
+
+def _sums_columns(cols, witnesses, aux_pre, prog, beta, gamma, delta, eta):
+    """The LogUp partial-sum columns on the trace domain, committed as
+    CM31 pairs: (re, im), each [2 n_sums, n], the QM31 a-parts above the
+    b-parts.  Sums-column order: NUM_LOOKUP channel sums, NUM_AUX
+    aux-table channel sums, the memory multiset S and F, the io S and F,
+    the crypto slot inverses and tape S and F, then (if program-bound)
+    the program sum.  ``cols``: the trace columns [n_cols, n] on the
+    device; ``witnesses``: the channel witnesses there."""
+    s_chan = _build_partial_sums(cols, witnesses, beta)
+    s_aux = _build_aux_partial_sums(cols, aux_pre["cols_dev"], beta, eta)
+    slot_inv4 = _crypto_slot_inverses(cols, beta, delta)
+    _sm4, fm4 = _memory_partial_sum(cols, beta, delta)
+    # The memory F column carries the crypto-slot demands too
+    # (constraints.memory_multiset slot_sum); fold them in and rebuild its
+    # exclusive prefix sums (an int64 sum over the slots is exact).
+    slot_total = tuple(c.sum(dim=0) % P for c in slot_inv4)
+    fm4 = qm31_add(fm4, slot_total)
+    sm4 = _exclusive_cumsum4(fm4)
+    si4, fi4 = _io_partial_sum(cols, beta, delta)
+    scr4, fcr4 = _crypto_tape_partial_sum(cols, beta, delta)
+    groups = [s_chan, s_aux,
+              tuple(c[None, :] for c in sm4),
+              tuple(c[None, :] for c in fm4),
+              tuple(c[None, :] for c in si4),
+              tuple(c[None, :] for c in fi4),
+              slot_inv4,
+              tuple(c[None, :] for c in scr4),
+              tuple(c[None, :] for c in fcr4)]
+    if prog is not None:
+        sp4 = _program_partial_sum(cols, prog["cols_dev"], beta, gamma)
+        groups.append(tuple(c[None, :] for c in sp4))
+    return (torch.cat([g[k] for k in (0, 2) for g in groups], dim=0),
+            torch.cat([g[k] for k in (1, 3) for g in groups], dim=0))
+
+
+def _quotient_args(s_ext_r, s_ext_i, aux_ext, prog_ext, challenges):
+    """``quotient_evals``'s keyword arguments of the full constraint set
+    over the sums columns' evaluations (``s_ext_r``/``s_ext_i``, [2 n_sums,
+    N]), the aux table's and, program-bound, the program table's
+    (``prog_ext``, else None); ``challenges`` = (beta, gamma, delta, eta,
+    entry point, memory init demand, I/O demand, crypto demand).  The
+    arguments hold views of the sums rows, no copies."""
+    from .constraints import N_CR_SUMS, N_SLOTS
+
+    beta, gamma, delta, eta, entry_point, d_init, d_io, d_cr = challenges
+    n_sums = s_ext_r.shape[0] // 2
+
+    def sq(lo, hi=None):
+        """QM31 view of sums columns [lo, hi) (or a single one)."""
+        if hi is None:
+            return (s_ext_r[lo], s_ext_i[lo],
+                    s_ext_r[n_sums + lo], s_ext_i[n_sums + lo])
+        return (s_ext_r[lo:hi], s_ext_i[lo:hi],
+                s_ext_r[n_sums + lo:n_sums + hi],
+                s_ext_i[n_sums + lo:n_sums + hi])
+
+    i_mem = NUM_LOOKUP + NUM_AUX
+    i_cr = i_mem + 4
+    return dict(
+        lookup=(sq(0, NUM_LOOKUP), beta),
+        aux=(aux_ext, sq(NUM_LOOKUP, i_mem), eta),
+        memory=((sq(i_mem), sq(i_mem + 1)), delta, d_init),
+        io=((sq(i_mem + 2), sq(i_mem + 3)), delta, d_io),
+        crypto=((sq(i_cr, i_cr + N_SLOTS), sq(i_cr + N_SLOTS),
+                 sq(i_cr + N_SLOTS + 1)), delta, d_cr),
+        program=(None if prog_ext is None else
+                 (prog_ext, sq(i_cr + N_CR_SUMS), gamma, entry_point)))
+
+
+def _quotient_too_high(q_coef, n_rows: int) -> bool:
+    """Whether the quotient's coefficients (two CM31 pairs) reach degree
+    2n: the chunking into two degree-< n polynomials would drop them."""
+    return any(bool(c[2 * n_rows:].any()) for pair in q_coef for c in pair)
+
+
+def _quotient_chunks(q_coef, n_rows: int, log_big: int, shift):
+    """The committed quotient columns: Q = Q0 + x^n Q1, each chunk's CM31
+    coordinate polynomials evaluated on the LDE coset, as (re, im) pairs
+    in batch order (chunk0_a, chunk0_b, chunk1_a, chunk1_b)."""
+    q_cm_cols = []
+    for j in range(2):
+        for coord in range(2):
+            # n_rows coefficients: the transform reads the rest as zero.
+            chunk = [q_coef[coord][part][j * n_rows:(j + 1) * n_rows]
+                     for part in range(2)]
+            q_cm_cols.append(coset_ntt(chunk[0], chunk[1], log_big,
+                                       shift=shift))
+    return q_cm_cols
 
 
 def _query_indices(k: int, big: int, blowup: int):
@@ -1180,23 +1282,12 @@ def prove_trace(matrix: np.ndarray,
         crypto_tape = extract_crypto_tape(padded)
         _observe_crypto(challenger, crypto_tape)
 
-    # Phase 1.5 (lookup only): beta challenge -> partial-sum columns.
-    # All challenges are QM31 (ops/qm31.py).  Sums-column layout (QM31
-    # values, committed as 2*n_sums CM31 columns: a-parts 0..n_sums-1,
-    # b-parts n_sums..2*n_sums-1): NUM_LOOKUP channel sums, NUM_AUX
-    # aux-table channel sums, the memory multiset S and F, the io S and
-    # F, the crypto slot inverses and tape S and F, then (if
-    # program-bound) the program sum.
-    lookup = None
-    aux_args = None
-    memory_args = None
-    io_args = None
-    crypto_args = None
-    program_args = None
+    # Phase 1.5 (lookup only): beta challenge -> partial-sum columns
+    # (``_sums_columns``).  All challenges are QM31 (ops/qm31.py).
     levels_s = None
     s_rows = None
     s_ext_r = s_ext_i = None
-    from .constraints import N_CR_SUMS, N_SLOTS
+    from .constraints import N_CR_SUMS
 
     n_sums = (NUM_LOOKUP + NUM_AUX + 4 + N_CR_SUMS
               + (1 if program is not None else 0)) if range_lookup else 0
@@ -1222,40 +1313,9 @@ def prove_trace(matrix: np.ndarray,
             s_rows = _interleave_rows(s_ext_r, s_ext_i)
             del cols
         else:
-            s_chan = _build_partial_sums(cols, _words(witnesses, device),
-                                         beta)
-            s_aux = _build_aux_partial_sums(cols, aux_pre["cols_dev"], beta,
-                                            eta)
-            slot_inv4 = _crypto_slot_inverses(cols, beta, delta)
-            _sm4, fm4 = _memory_partial_sum(cols, beta, delta)
-            # The memory F column carries the crypto-slot demands too
-            # (constraints.memory_multiset slot_sum); fold them in and
-            # rebuild its exclusive prefix sums (an int64 sum over the
-            # slots is exact).
-            slot_total = tuple(c.sum(dim=0) % P for c in slot_inv4)
-            fm4 = qm31_add(fm4, slot_total)
-            sm4 = _exclusive_cumsum4(fm4)
-            si4, fi4 = _io_partial_sum(cols, beta, delta)
-            scr4, fcr4 = _crypto_tape_partial_sum(cols, beta, delta)
-            groups = [s_chan, s_aux,
-                      tuple(c[None, :] for c in sm4),
-                      tuple(c[None, :] for c in fm4),
-                      tuple(c[None, :] for c in si4),
-                      tuple(c[None, :] for c in fi4),
-                      slot_inv4,
-                      tuple(c[None, :] for c in scr4),
-                      tuple(c[None, :] for c in fcr4)]
-            if prog is not None:
-                sp4 = _program_partial_sum(cols, prog["cols_dev"], beta,
-                                           gamma)
-                groups.append(tuple(c[None, :] for c in sp4))
-            # [2 n_sums, n]: a-parts on top of b-parts, per CM31 coordinate.
-            s_r = torch.cat([g[k] for k in (0, 2) for g in groups], dim=0)
-            s_i = torch.cat([g[k] for k in (1, 3) for g in groups], dim=0)
-            del s_chan, s_aux, slot_inv4, _sm4, sm4, fm4, si4, fi4, scr4
-            del fcr4, slot_total, groups, cols
-            if prog is not None:
-                del sp4
+            s_r, s_i = _sums_columns(cols, _words(witnesses, device),
+                                     aux_pre, prog, beta, gamma, delta, eta)
+            del cols
             log(f"partial sums built ({n_sums} QM31 columns)")
             s_ext_r, s_ext_i = lde(s_r, s_i, log_n, fri_config.log_blowup,
                                    shift=shift)
@@ -1271,31 +1331,17 @@ def prove_trace(matrix: np.ndarray,
         log(f"partial sums committed ({n_sums} QM31 columns)")
         challenger.observe_many(int(x) for x in root_s)
 
-        def sq(lo, hi=None):
-            """QM31 view of sums columns [lo, hi) (or a single one)."""
-            if hi is None:
-                return (s_ext_r[lo], s_ext_i[lo],
-                        s_ext_r[n_sums + lo], s_ext_i[n_sums + lo])
-            return (s_ext_r[lo:hi], s_ext_i[lo:hi],
-                    s_ext_r[n_sums + lo:n_sums + hi],
-                    s_ext_i[n_sums + lo:n_sums + hi])
-
-        lookup = (sq(0, NUM_LOOKUP), beta)
-        aux_args = (aux_pre["ext"],
-                    sq(NUM_LOOKUP, NUM_LOOKUP + NUM_AUX), eta)
-        i_mem = NUM_LOOKUP + NUM_AUX
-        d_init = memory_init_demand(program, beta, delta, device=device)
-        memory_args = ((sq(i_mem), sq(i_mem + 1)), delta, d_init)
-        d_io = io_tape_demand(io_inputs, io_outputs, beta, delta,
-                              device=device)
-        io_args = ((sq(i_mem + 2), sq(i_mem + 3)), delta, d_io)
-        i_cr = i_mem + 4
-        d_cr = crypto_tape_demand(crypto_tape, beta, delta, device=device)
-        crypto_args = ((sq(i_cr, i_cr + N_SLOTS), sq(i_cr + N_SLOTS),
-                        sq(i_cr + N_SLOTS + 1)), delta, d_cr)
-        if prog is not None:
-            program_args = (prog["ext"], sq(i_cr + N_CR_SUMS), gamma,
-                            entry_point)
+        challenges = (beta, gamma, delta, eta, entry_point,
+                      memory_init_demand(program, beta, delta, device=device),
+                      io_tape_demand(io_inputs, io_outputs, beta, delta,
+                                     device=device),
+                      crypto_tape_demand(crypto_tape, beta, delta,
+                                         device=device))
+        lookup_kwargs = _quotient_args(
+            s_ext_r, s_ext_i, aux_pre["ext"],
+            None if prog is None else prog["ext"], challenges)
+    else:
+        lookup_kwargs = {}
 
     alpha_c = challenger.sample_qm31()
 
@@ -1303,8 +1349,6 @@ def prove_trace(matrix: np.ndarray,
     # Q(x) = Q0(x) + x^n Q1(x).  Each QM31 chunk is committed as two
     # CM31 coordinate columns (a + b*u), so q_rows is [N, 8].
     n_rows = 1 << log_n
-    lookup_kwargs = dict(lookup=lookup, aux=aux_args, program=program_args,
-                         memory=memory_args, io=io_args, crypto=crypto_args)
     ck = stage("quotient")
     if ck is not None:
         q_cm_cols = [(_words(ck[f"q{k}r"], device),
@@ -1317,33 +1361,20 @@ def prove_trace(matrix: np.ndarray,
         q_coef = [coset_intt(q[0], q[1], log_big, shift=shift),
                   coset_intt(q[2], q[3], log_big, shift=shift)]
         del q
-        if selfcheck:
+        if selfcheck and _quotient_too_high(q_coef, n_rows):
             # Completeness self-check: Q is a polynomial of degree < 2n
             # iff every constraint divides cleanly.  The chunking below
             # DISCARDS coefficients [2n, 4n): catch a violated constraint
             # here, at prove time, with a name.
-            bad = any(bool(c[2 * n_rows:].any())
-                      for pair in q_coef for c in pair)
-            if bad:
-                detail = diagnose_violations(
-                    ext_r, ext_i, log_n, fri_config.log_blowup, shift,
-                    **lookup_kwargs)
-                raise ConstraintViolation(
-                    "trace violates the constraint system (quotient has "
-                    f"degree >= 2n): {detail}")
-        # CM31 coordinate columns in batch order:
-        # (chunk0_a, chunk0_b, chunk1_a, chunk1_b).
-        q_cm_cols = []
-        for j in range(2):
-            for coord in range(2):
-                # n_rows coefficients: the transform reads the rest as zero.
-                chunk = [q_coef[coord][part][j * n_rows:(j + 1) * n_rows]
-                         for part in range(2)]
-                q_cm_cols.append(coset_ntt(chunk[0], chunk[1], log_big,
-                                           shift=shift))
+            detail = diagnose_violations(
+                ext_r, ext_i, log_n, fri_config.log_blowup, shift,
+                **lookup_kwargs)
+            raise ConstraintViolation(
+                "trace violates the constraint system (quotient has "
+                f"degree >= 2n): {detail}")
+        q_cm_cols = _quotient_chunks(q_coef, n_rows, log_big, shift)
         del q_coef
-    del lookup_kwargs, lookup, aux_args, memory_args, io_args, crypto_args
-    del program_args
+    del lookup_kwargs
     q_rows = torch.stack(
         [c for pair in q_cm_cols for c in pair], dim=1)   # [N, 8]
     if ck is None:

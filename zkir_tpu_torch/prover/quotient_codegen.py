@@ -995,10 +995,12 @@ def _leaf_pointers(A, groups, n_leaves, n) -> np.ndarray:
     return ptrs
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=8)
 def _dinv_rows(log_n, log_blowup, shift, device):
     """1/Z_H, 1/Z_trans, 1/Z_first, 1/Z_last as an [8, N] int64 table on
-    ``device`` (real and imaginary rows per tag, ``TAG_ROW``)."""
+    ``device`` (real and imaginary rows per tag, ``TAG_ROW``).  A
+    streaming prove asks for four, one per coset of the LDE domain (its
+    own shift each, at log_blowup 0)."""
     from .constraints import _vanishing_tables
 
     rows = np.stack(_vanishing_tables(log_n, log_blowup, shift))
