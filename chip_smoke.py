@@ -84,10 +84,24 @@ path):
    and the 2^16 main path's inputs; then ``exact_trace_program(20)``
    interpreted on the card, proved by streaming with its program bound
    and verified (peak device memory, seconds, rows per second);
-9. the CLI as a user runs it, in subprocesses of ``python3 -m
-   zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with both
-   engines (native: the reference's line and exit code at a cycle limit;
-   gpu), ``prove``
+9. the deferred-carry model (``InterpConfig(deferred=True)``, the
+   kernel's deferred build): the interpreter kernel against its plain
+   version as in phase 5 on the 64 fuzz programs (two lanes) and on a
+   program of the model's corners (2 lanes, a warp each; 2,048, a thread
+   each; two lanes also against the port's oracle VM); the one-lane
+   ``exact_trace_program(15)`` runs, deferred and plain, against the
+   oracle VM row by row (pre-state registers, bounds and accumulated
+   registers, normalization witnesses against ``norm_*``; the plain run
+   at 2^14), with the oracle's cycles per second on the host; the
+   deferred 2^16 trace
+   interpreted and proved with its program bound (launch counts from 0),
+   its matrix and proof equal to phase 7's and verified; the 2^16 launch
+   of both builds timed in turns beside each build's bound;
+10. the CLI as a user runs it, in subprocesses of ``python3 -m
+   zkir_tpu_torch`` in a temporary directory: ``asm``, ``run`` with the
+   three engines (native: the reference's line and exit code at a cycle
+   limit; oracle: the reference's line, with and without a limit; gpu),
+   ``prove``
    with and without ``--bind`` (proofs JSON-equal to goldens D and A),
    ``prove --streaming --bind`` (golden D again) and ``--streaming
    --checkpoint-dir`` (refused), ``verify`` (accepting, and refusing
@@ -98,7 +112,9 @@ The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
 run of phase 7, for ``p2_permute`` the syscall run of phase 5, for
 ``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
-``p2_compress_level``, which no path launches any more; max
+``p2_compress_level``, which no path launches any more; beside them the
+launches of the other paths, the deferred one of phase 9 included, and
+for ``interp_run`` both builds' 2^16 launch and bound; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
 timed cases; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -189,10 +205,9 @@ STREAMING_KERNELS = PROVER_KERNELS + ["p2_sponge_absorb"]
 # older kernel, a thread per lane decoding each word every cycle (1,784
 # static instructions, 1,390 in the cycle loop).  The bound takes the
 # built kernel's own floor where it is lower (interp_floor), never a
-# higher one.  Then the bytes of one trace row.
+# higher one.
 INTERP_INSTR_PER_CYCLE = 140
 SM_CLOCK_HZ = 1.98e9
-TRACE_ROW_BYTES = 244
 
 
 def log(msg: str) -> None:
@@ -792,8 +807,11 @@ def staggered_program():
 
 def interp_floor() -> dict:
     """Instructions every cycle executes in each layout of the built
-    interpreter kernel (``tools/sass_count.py`` floor of its cycle loop),
-    capped at ``INTERP_INSTR_PER_CYCLE``: the bound never loosens."""
+    interpreter kernel (``tools/sass_count.py`` floor of its cycle loop):
+    a warp per lane with a trace (the one-lane main path), a thread per
+    lane without one (many lanes), and a warp per lane with a trace in the
+    deferred model's build; each capped at ``INTERP_INSTR_PER_CYCLE``: the
+    bound never loosens."""
     from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.tools.sass_count import cycle_loop_floor, instructions
 
@@ -803,8 +821,10 @@ def interp_floor() -> dict:
         [str(cuobjdump), "-sass", str(_kernels.library_path())],
         capture_output=True, text=True, check=True).stdout)
     out = {}
-    for layout, name in (("warp", "interp_kernelILb1"),
-                         ("thread", "interp_kernelILb0")):
+    # interp_kernel<WARP, COLLECT, DEFERRED>'s mangled names.
+    for layout, name in (("warp", "interp_kernelILb1ELb1ELb0E"),
+                         ("thread", "interp_kernelILb0ELb0ELb0E"),
+                         ("warp_deferred", "interp_kernelILb1ELb1ELb1E")):
         static, floor = cycle_loop_floor(instructions(sass, name))
         out[layout] = {"static": static, "floor": floor,
                        "bound_instr": min(floor, INTERP_INSTR_PER_CYCLE)}
@@ -932,7 +952,7 @@ def phase_interp(results) -> dict:
     compare("interp_run", lambda: segment(interp_run),
             lambda: segment(interp_run_plain, kernel=False), 20, results,
             plain_iters=1, bounds=interp_bound(
-                2 * state_bytes + TRACE_ROW_BYTES * 1024, 1024, 1,
+                2 * state_bytes + columnar.TRACE_ROW_BYTES * 1024, 1024, 1,
                 floor["bound_instr"]))
     rows = 1 << 16
     chunks = rows // 1024
@@ -954,7 +974,8 @@ def phase_interp(results) -> dict:
         if it:                  # the first launch is the warm-up
             ms += start.elapsed_time(end) / 5
     ms_setup = cuda_ms(lambda: segment(interp_run, chunks=chunks), 5)
-    b = interp_bound(2 * state_bytes + TRACE_ROW_BYTES * rows, rows, 1,
+    b = interp_bound(2 * state_bytes + columnar.TRACE_ROW_BYTES * rows,
+                     rows, 1,
                      floor["bound_instr"])
     results["interp_run"].update(
         shape="1 lane x 1,024 cycles, a one-chunk segment", ms_2e16=ms,
@@ -1079,6 +1100,322 @@ def phase_interp(results) -> dict:
     return stats
 
 
+def deferred_program():
+    """ADD, SUB and ADDI chains that take the deferred-carry model into its
+    corners: tape values read into a register that ADDI marks accumulated,
+    registers that double until a limb reaches 2^30 (the overflow path
+    normalizes both sources and writes them back), SUB wrapping its limbs,
+    ADDI of a negative immediate, observation points with rs1 == rs2 and
+    with R0, the raw accumulated words written out; then EXIT."""
+    from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+    ins = [
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ -> r10
+        I(Op.ADDI, rd=2, rs1=10, imm=0),
+        I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),        # READ -> r10
+        I(Op.ADD, rd=6, rs1=10, rs2=0),
+        I(Op.ADDI, rd=14, rs1=0, imm=24),
+    ]
+    loop = [
+        I(Op.ADD, rd=2, rs1=2, rs2=2),
+        I(Op.ADD, rd=6, rs1=6, rs2=2),
+        I(Op.SUB, rd=3, rs1=3, rs2=6),
+        I(Op.ADDI, rd=4, rs1=4, imm=-3),
+        I(Op.ADDI, rd=14, rs1=14, imm=-1),
+    ]
+    loop.append(I(Op.BNE, rs1=14, rs2=0, imm=-4 * len(loop)))
+    tail = [
+        I(Op.XOR, rd=7, rs1=2, rs2=3),
+        I(Op.SLT, rd=8, rs1=6, rs2=6),
+        I(Op.AND, rd=9, rs1=4, rs2=4),
+        I(Op.SRAI, rd=12, rs1=3, imm=5),
+        I(Op.SLTU, rd=13, rs1=0, rs2=3),
+        I(Op.ADD, rd=11, rs1=7, rs2=12),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL),        # WRITE r11
+        I(Op.ADD, rd=11, rs1=2, rs2=4), I(Op.ECALL),          # WRITE r11
+        I(Op.ANDI, rd=11, rs1=6, imm=0xFF),
+        I(Op.ADDI, rd=10, rs1=0, imm=0), I(Op.ECALL),        # EXIT
+    ]
+    return Program.from_instructions(ins + loop + tail)
+
+
+def oracle_events(result) -> list:
+    """The oracle's normalization witnesses as tuples (cycle, register,
+    accumulated limbs, normalized limbs, carries)."""
+    return [(e.witness.cycle, e.witness.register,
+             *e.witness.accumulated_limbs, *e.witness.normalized_limbs,
+             *e.witness.carries) for e in result.normalization_witnesses]
+
+
+def trace_events(trace, lane=0) -> list:
+    """``oracle_events`` of an interpreter trace's ``norm_*`` columns."""
+    import numpy as np
+
+    keys = ("cycle", "norm_reg", "norm_acc0", "norm_acc1", "norm_n0",
+            "norm_n1", "norm_c0", "norm_c1")
+    rows = np.nonzero(trace["norm_valid"][:, lane])[0]
+    return list(zip(*(map(int, trace[k][rows, lane]) for k in keys)))
+
+
+def same_as_oracle(name, result, trace, vm, oracle, lane=0) -> None:
+    """A lane of an interpreter run equal to the oracle VM's run of the
+    same program: cycles, halt, exit code, outputs, final registers and
+    bounds; with a trace, every row's cycle, pc, word, pre-state registers,
+    bounds and accumulated registers, and the normalization witnesses."""
+    import numpy as np
+
+    from zkir_tpu_torch.interp import HALT_EBREAK, HALT_EXIT
+    from zkir_tpu_torch.runtime import HaltReason
+
+    halt = {HaltReason.EBREAK: HALT_EBREAK, HaltReason.EXIT: HALT_EXIT}
+    want = {"cycles": oracle.cycles,
+            "halted": halt[oracle.halt_reason.reason],
+            "outputs": oracle.outputs,
+            "regs": vm.state.regs,
+            "bound_bits": [b.max_bits for b in vm.state.bounds]}
+    got = {"cycles": int(result["cycles"][lane]),
+           "halted": int(result["halted"][lane]),
+           "outputs": [int(v) for v in result["outputs"][lane]],
+           "regs": [int(v) for v in result["regs"][lane]],
+           "bound_bits": [int(v) for v in result["bound_bits"][lane]]}
+    if oracle.halt_reason.reason == HaltReason.EXIT:
+        want["exit"] = oracle.halt_reason.code
+        got["exit"] = int(result["exit_code"][lane])
+    if got != want:
+        raise AssertionError(f"{name}: {got} != the oracle's {want}")
+    if trace is None:
+        return
+    rows = oracle.execution_trace
+    valid = np.nonzero(trace["valid"][:, lane])[0]
+    if len(valid) != len(rows):
+        raise AssertionError(f"{name}: {len(valid)} trace rows, the oracle "
+                             f"{len(rows)}")
+    cols = {"cycle": [r.cycle for r in rows], "pc": [r.pc for r in rows],
+            "word": [r.instruction for r in rows],
+            "regs": [r.registers for r in rows],
+            "bounds": [[b.max_bits for b in r.bounds] for r in rows]}
+    if "accum_mask" in trace:
+        cols["accum_mask"] = [sum(int(v) << k for k, v in enumerate(
+            r.register_states)) for r in rows]
+    for key, want_col in cols.items():
+        got_col = trace[key][valid, lane]
+        if not np.array_equal(got_col.astype(np.uint64),
+                              np.asarray(want_col, dtype=np.uint64)):
+            raise AssertionError(f"{name}: trace[{key!r}] differs from the "
+                                 "oracle's rows")
+    if "norm_valid" in trace and trace_events(trace, lane) \
+            != oracle_events(oracle):
+        raise AssertionError(f"{name}: the normalization witnesses differ "
+                             "from the oracle's")
+
+
+def phase_deferred(results, main_path, floor=None, log_rows=16,
+                   seeds=range(64), oracle_log_rows=15) -> dict:
+    """The deferred-carry model (``InterpConfig(deferred=True)``): (a) K3
+    against its plain version on the fuzz programs (two lanes, a warp
+    each) and on ``deferred_program`` (2 and 2,048 lanes, a warp or a
+    thread each; lanes also against the oracle VM); (b) the one-lane
+    ``exact_trace_program(oracle_log_rows)`` run against the port's
+    oracle VM with the deferred model, the execution trace and range
+    checks on, and the plain run of half as many cycles against the
+    oracle without the deferred model (the oracle's cycles per second on
+    this host; 2^15, not the path's 2^16: the oracle's trace scans its
+    whole memory log every cycle, as the reference's does, so a run's
+    time grows with the square of its cycles, 84 s deferred and 125 s
+    plain at 2^16 on the H100 machine's host); (c) the deferred trace's
+    matrix equal to the main path's, interpreted and proved with its
+    program bound (launch counts set to 0 just before, read just after),
+    the proof equal to the main path's and verified; (d) the 2^16
+    ``interp_run`` launch with and without the deferred model, timed in
+    turns beside the bound (``floor``: ``interp_floor()``'s, made here if
+    not given), after one lane x 256 cycles against the plain version."""
+    import numpy as np
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.interp import (InterpConfig, TpuInterpreter,
+                                       interp_run)
+    from zkir_tpu_torch.interp import columnar
+    from zkir_tpu_torch.prover import (FriConfig, prove_trace,
+                                       trace_to_matrix, verify_trace)
+    from zkir_tpu_torch.prover.benchtrace import exact_trace_program
+    from zkir_tpu_torch.runtime import VM, VMConfig
+    from zkir_tpu_torch.tools.fuzz_programs import generate_program
+
+    stats = {"floor": floor or interp_floor()}
+    small = dict(low_bytes=1 << 15, stack_bytes=1 << 12, collect_trace=True,
+                 deferred=True)
+
+    # (a) the fuzz programs on two lanes with different tapes, and the
+    # deferred model's corners on few and on many lanes.
+    t0 = time.perf_counter()
+    cycles = 0
+    for seed in seeds:
+        program, inputs = generate_program(seed)
+        interp = TpuInterpreter(program, InterpConfig(
+            lanes=2, chunk=64, **small), device="cuda")
+        cycles += interp_both(f"deferred fuzz seed {seed}", interp,
+                              [inputs, [x ^ 0x5A5A for x in inputs[::-1]]])[0]
+    log(f"deferred: interp_chunk, interp_run exact on {len(seeds)} fuzz "
+        f"programs x 2 lanes ({cycles} cycles, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(SEED)
+    program = deferred_program()
+    for lanes in (2, 2048):
+        tapes = [[int(v) for v in rng.integers(0, 1 << 40, size=2)]
+                 for _ in range(lanes)]
+        interp = TpuInterpreter(program, InterpConfig(
+            lanes=lanes, chunk=16, **small), device="cuda")
+        n, result, _ = interp_both(f"deferred corners, {lanes} lanes", interp,
+                                   tapes)
+        for lane in range(2):
+            vm = VM(program, tapes[lane], VMConfig(
+                enable_deferred_model=True, enable_execution_trace=True))
+            same_as_oracle(f"deferred corners, lane {lane} of {lanes}",
+                           result, result["trace"], vm, vm.run(), lane)
+        log(f"deferred: interp_chunk, interp_run exact on the corners "
+            f"program, {lanes} lanes ({n} cycles, "
+            f"{'warp' if columnar.warp_layout(lanes, True) else 'thread'} "
+            f"layout), lanes 0 and 1 equal to the oracle VM")
+    stats["fuzz_and_corners_s"] = time.perf_counter() - t0
+
+    # (b) the one-lane run against the port's oracle VM.
+    for deferred, log_n in ((True, oracle_log_rows),
+                            (False, oracle_log_rows - 1)):
+        rows = 1 << log_n
+        program = exact_trace_program(log_n)
+        t0 = time.perf_counter()
+        result = TpuInterpreter(program, InterpConfig(
+            lanes=1, chunk=1024, collect_trace=True, deferred=deferred),
+            device="cuda").run([[]], max_cycles=2 * rows)
+        run_s = time.perf_counter() - t0
+        vm = VM(program, [], VMConfig(
+            max_cycles=2 * rows, enable_deferred_model=deferred,
+            enable_execution_trace=True, enable_range_checking=True))
+        t0 = time.perf_counter()
+        oracle = vm.run()
+        oracle_s = time.perf_counter() - t0
+        name = f"2^{log_n} {'deferred ' if deferred else ''}run"
+        same_as_oracle(name, result, result["trace"], vm, oracle)
+        key = "deferred" if deferred else "plain"
+        stats[f"oracle_{key}"] = {
+            "cycles": oracle.cycles, "seconds": oracle_s,
+            "cycles_per_s": oracle.cycles / oracle_s,
+            "normalization_witnesses": len(oracle.normalization_witnesses),
+            "range_check_witnesses": len(oracle.range_check_witnesses),
+            "interp_run_s": run_s}
+        log(f"deferred: {name} on the card equal to the oracle VM ("
+            f"{oracle.cycles} cycles, {len(oracle.normalization_witnesses)} "
+            f"normalization witnesses); the oracle {oracle_s:.2f} s, "
+            f"{oracle.cycles / oracle_s:.0f} cycles/s on this host")
+
+    # (c) the deferred path from program to proof, as a user drives it.
+    rows = 1 << log_rows
+    program = exact_trace_program(log_rows)
+
+    def interpret(deferred=True):
+        trace = TpuInterpreter(program, InterpConfig(
+            lanes=1, chunk=1024, collect_trace=True, deferred=deferred),
+            device="cuda").run([[]], max_cycles=2 * rows)["trace"]
+        return trace_to_matrix(trace, program=program)
+
+    made = {}
+
+    def interpret_and_prove():
+        matrix = made["matrix"] = interpret()
+        if main_path is not None and not np.array_equal(
+                matrix, main_path["matrix"]):
+            raise AssertionError("the deferred trace's matrix differs from "
+                                 "the main path's")
+        return prove_trace(matrix, FriConfig(), range_lookup=True,
+                           program=program, device="cuda")
+
+    if main_path is not None:
+        proof, path_s, launches = counted(interpret_and_prove,
+                                          MAIN_PATH_KERNELS)
+        warm, warm_s, stages, peak = logged_prove(lambda: prove_trace(
+            made["matrix"], FriConfig(), range_lookup=True, program=program,
+            device="cuda"))
+        if proof != main_path["proof"] or warm != proof:
+            raise AssertionError("the deferred trace proves to another proof "
+                                 "than the main path's")
+        if not verify_trace(proof, program, device="cuda"):
+            raise AssertionError("the port's verifier rejects the deferred "
+                                 "path's proof")
+        stats["path"] = {"seconds": path_s, "launches": launches,
+                         "prove_warm_s": warm_s, "peak_bytes": peak,
+                         "stages_warm_s": stages}
+        log(f"deferred: the 2^{log_rows} path (interpret, matrix, prove with "
+            f"the program bound) in {path_s:.3f} s, the warm prove "
+            f"{warm_s:.3f} s, peak device memory {peak / 2**30:.3f} GiB: "
+            f"matrix and proof equal to the main path's, verified; launches "
+            f"{launches}")
+        del proof, warm
+    elif not np.array_equal(interpret(), interpret(deferred=False)):
+        raise AssertionError("the deferred trace's matrix differs from the "
+                             "plain one")
+
+    # (d) one lane x 256 cycles against the plain version (some 2 s a
+    # run), then the 2^16 launch alone, deferred and plain in turns.
+    interp = TpuInterpreter(program, InterpConfig(
+        lanes=1, chunk=256, collect_trace=True, deferred=True),
+        device="cuda")
+
+    def segment(run, **kw):
+        state = interp.init_state([[]])
+        at = torch.zeros(1, dtype=torch.int32, device="cuda")
+        trace = columnar._new_trace(256, 1, "cuda", deferred=True)
+        state = run(interp.code, interp.n_words, state, at, 0, 1,
+                    interp.config, trace, **kw)
+        return interp_flat(state, trace, valid_only=False) + (at,)
+
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in interp.init_state([[]]))
+    compare("interp_run deferred", lambda: segment(
+        interp_run, decoded=interp.decoded),
+        lambda: segment(columnar.interp_run_plain), 20, results,
+        plain_iters=1, key="interp_run deferred [1 lane x 256]",
+        bounds=interp_bound(
+            2 * state_bytes + columnar.DEFERRED_ROW_BYTES * 256, 256, 1,
+            stats["floor"]["warp_deferred"]["floor"]))
+    times = {True: [], False: []}
+    for deferred in (False, True, True, False) * 3:
+        interp = TpuInterpreter(program, InterpConfig(
+            lanes=1, chunk=1024, collect_trace=True, deferred=deferred),
+            device="cuda")
+        state = interp.init_state([[]])
+        at = torch.zeros(1, dtype=torch.int32, device="cuda")
+        trace = columnar._new_trace(rows, 1, "cuda", deferred)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        interp_run(interp.code, interp.n_words, state, at, 0, rows // 1024,
+                   interp.config, trace, decoded=interp.decoded)
+        end.record()
+        torch.cuda.synchronize()
+        if int(state.cycles[0]) != rows:
+            raise AssertionError(f"the 2^{log_rows} run ran "
+                                 f"{int(state.cycles[0])} cycles")
+        times[deferred].append(start.elapsed_time(end))
+    # The bound: each build's own floor at one instruction a clock.
+    for deferred, floor_key, row_bytes in (
+            (True, "warp_deferred", columnar.DEFERRED_ROW_BYTES),
+            (False, "warp", columnar.TRACE_ROW_BYTES)):
+        ms = times[deferred][1:]              # the first a warm-up
+        b = interp_bound(2 * state_bytes + row_bytes * rows, rows, 1,
+                         stats["floor"][floor_key]["floor"])
+        key = "deferred" if deferred else "plain"
+        stats[f"interp_run_2e{log_rows}_{key}"] = {
+            "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+            **b, "instr_per_cycle": stats["floor"][floor_key]["floor"]}
+        log(f"deferred: interp_run, the 2^{log_rows} run with a trace, "
+            f"{key}: {sum(ms) / len(ms):.4f} ms ({min(ms):.4f}-{max(ms):.4f}) "
+            f"the launch alone, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({stats['floor'][floor_key]['floor']} "
+            f"instructions a cycle)")
+    return stats
+
+
 def run_cli(workdir, *args, expect=0):
     """``python3 -m zkir_tpu_torch *args`` in ``workdir``: (stdout,
     stderr, seconds); fails on another exit code than ``expect``."""
@@ -1138,6 +1475,24 @@ def phase_cli() -> dict:
                             "--engine", "native", expect=1)
         if "runs on the host" not in err:
             raise AssertionError(f"--device cuda run --engine native: {err}")
+        # The oracle engine: the reference's line (the halt by name) and
+        # exit code 0, the native engine's cycles, exit code and outputs.
+        native = run_cli(tmp, "run", "fib.zkir", "--input", "10",
+                         "--engine", "native")[0].split()
+        for limit, line in ((None, "halt=exit cycles=62 exit=0 outputs=[55]"),
+                            ("5", "halt=cycle_limit cycles=5 exit=0 "
+                                  "outputs=[]")):
+            flags = ("--max-cycles", limit) if limit else ()
+            out, _, t = run_cli(tmp, "run", "fib.zkir", "--input", "10",
+                                "--engine", "oracle", *flags)
+            if out.strip() != line or (
+                    limit is None and out.split()[1:] != native[1:]):
+                raise AssertionError(f"run --engine oracle {flags}: {out}")
+            stats.setdefault("cli_run_oracle_s", t)
+        _, err, _ = run_cli(tmp, "--device", "cuda", "run", "fib.zkir",
+                            "--engine", "oracle", expect=1)
+        if "runs on the host" not in err:
+            raise AssertionError(f"--device cuda run --engine oracle: {err}")
         out, _, stats["cli_prove_bind_s"] = run_cli(
             tmp, "prove", fib, "--input", "10", "--bind", "-o", "d.json")
         if out.strip() != "proved 62 trace rows (62 cycles) -> d.json":
@@ -1167,10 +1522,11 @@ def phase_cli() -> dict:
                             "--checkpoint-dir", "sck", expect=1)
         if "writes no stage checkpoints" not in err or (tmp / "sck").exists():
             raise AssertionError(f"prove --streaming --checkpoint-dir: {err}")
-        log("CLI: asm, disasm, run (native and gpu engines, with and "
-            "without a cycle limit, gpu the default, native refused with "
-            "--device cuda), prove (goldens D and A reproduced; golden D "
-            "also by --streaming --bind, and --streaming refusing "
+        log("CLI: asm, disasm, run (native, oracle and gpu engines, with "
+            "and without a cycle limit, gpu the default, the host engines "
+            "refused with --device cuda), prove (goldens D and A "
+            "reproduced; golden D also by --streaming --bind, and "
+            "--streaming refusing "
             "--checkpoint-dir), verify VALID / INVALID with another "
             "program")
 
@@ -2022,8 +2378,11 @@ def main() -> int:
                                   quotient_stats)
     stream_stats = timed("streaming", phase_streaming, results,
                          quotient_stats, main_path)
+    deferred_stats = timed("deferred", phase_deferred, results, main_path,
+                           interp_stats["floor"])
     del main_path
     stats = {**full_stats, **stream_stats, "interp": interp_stats,
+             "deferred": deferred_stats,
              "cli": timed("cli", phase_cli), "quotient": quotient_stats,
              "phase_s": phase_s}
     if quotient_codegen.compiles != quotient_stats["compiled"]:
@@ -2035,8 +2394,16 @@ def main() -> int:
     # range_lookup=True and the program bound; for p2_permute the
     # interpreter's Poseidon2 syscalls; for p2_sponge_absorb the 2^16
     # streaming prove); launches_plain_path: the range_lookup=False
-    # prove; launches_streaming_path: the 2^16 streaming prove.
+    # prove; launches_streaming_path: the 2^16 streaming prove;
+    # launches_deferred_path: the deferred model's 2^16 trace interpreted
+    # and proved with its program bound.
     streamed = stats["stream_2e16_bound"]["launches"]
+    deferred_path = deferred_stats["path"]["launches"]
+    # interp_run's deferred build: the 2^16 launch alone and its bound,
+    # beside the plain build's in the same call.
+    extra = {"interp_run": {
+        f"{k}_2e16_{model}": deferred_stats[f"interp_run_2e16_{model}"][k]
+        for model in ("deferred", "plain") for k in ("ms", "bound_ms")}}
     main_path = dict(stats["prove_2e16_bound"]["launches"],
                      p2_permute=interp_stats["syscall_path_launches"]
                      ["p2_permute"],
@@ -2047,9 +2414,10 @@ def main() -> int:
                 "launches_plain_path":
                     stats["prove_2e16"]["launches"][name],
                 "launches_streaming_path": streamed[name],
+                "launches_deferred_path": deferred_path.get(name, 0),
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                    "library_ms")}, **extra.get(name, {})}
                for name, (src, replaces) in KERNELS.items()]
     # p2_compress_level builds one level; no path of the port launches it
     # since p2_merkle_tree builds each tree in one launch (0 above).

@@ -213,9 +213,3 @@ def test_default_device_needs_a_gpu(capsys):
         main(["run", FIB, "--input", "10"])
     assert "--device cpu" in str(exc.value)
     assert exc.value.code not in (0, None)
-
-
-def test_reference_engines_are_not_offered():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: run --engine oracle"):
-        cli("run", FIB, "--engine", "oracle")

@@ -387,12 +387,6 @@ def test_no_memory_image_without_memory_ops():
     assert port["halted"].tolist() == [HALT_EBREAK] * 2
 
 
-def test_deferred_model_raises_naming_roadmap():
-    program = Program.from_instructions([I(Op.EBREAK)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TpuInterpreter(program, InterpConfig(deferred=True), device="cpu")
-
-
 @pytest.mark.parametrize("seed", [0, 7, 13, 21, 42, 63])
 def test_fuzz_seed_parity(seed):
     """Fuzz programs against the reference, trace and all, two lanes with

@@ -249,6 +249,7 @@ def test_fast_path_equals_the_plain_step(op):
         pc=torch.tensor(pcs), regs=torch.tensor(
             np.array(regs, dtype=np.uint64).view(np.int64)),
         bound_bits=torch.tensor(bounds, dtype=torch.int32),
+        accum=torch.zeros((n, 16), dtype=torch.int32),
         halted=torch.zeros(n, dtype=torch.int32),
         exit=torch.zeros(n, dtype=torch.int64),
         cycles=torch.zeros(n, dtype=torch.int64),

@@ -231,9 +231,10 @@ def test_interp_descriptor_fills_the_kernels_slots():
     assert (at["D_HAS_MEM"], at["D_COLLECT"]) == (1, 1)
     assert (at["D_MAX_INPUTS"], at["D_MAX_OUTPUTS"]) == (64, 64)
     assert at["D_OUT_POS"] == state.out_pos.data_ptr()
-    # The trace slots follow the order of the column table, T_<NAME>.
+    # The trace slots follow the order of the column table, T_<NAME>, the
+    # deferred model's column last.
     assert [s for s in slots if s.startswith("T_")] == [
-        f"T_{name.upper()}" for name in C._TRACE_COLUMNS]
+        f"T_{name.upper()}" for name in C.trace_columns(deferred=True)]
     assert at["T_RC_VALUE"] == trace["rc_value"].data_ptr()
     without = list(C._descriptor(interp.code, interp.n_words, state,
                                  interp.config, None))

@@ -2,8 +2,8 @@
 import ``jax`` or ``zkir_tpu``, import the port (prover, toolchain,
 interpreter and CLI), prove golden B, verify the stored program-bound
 golden E (spec, convert, the preprocessed tables and the public demands),
-and drive ``asm``, ``run`` (the native engine), ``prove`` and ``verify``
-of ``examples/add.zkasm`` through the CLI on the CPU."""
+and drive ``asm``, ``run`` (the native and the oracle engine), ``prove``
+and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU."""
 
 import os
 import pathlib
@@ -23,7 +23,8 @@ import zkir_tpu_torch.asm, zkir_tpu_torch.cli, zkir_tpu_torch.interp
 import zkir_tpu_torch.interp.checkpoint, zkir_tpu_torch.prover.benchtrace
 import zkir_tpu_torch.tools.fuzz_programs, zkir_tpu_torch.tools.interp_bench
 import zkir_tpu_torch.runtime.native_vm, zkir_tpu_torch.prover.streaming
-import zkir_tpu_torch.tools.stream_prove
+import zkir_tpu_torch.tools.stream_prove, zkir_tpu_torch.runtime.vm
+import zkir_tpu_torch.spec.analyzer, zkir_tpu_torch.spec.values
 from zkir_tpu_torch.convert import (fixture_from_reference, proof_from_json,
                                     proof_to_json)
 from zkir_tpu_torch.prover import FriConfig, prove_trace, verify_trace
@@ -43,12 +44,15 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli("asm", "examples/add.zkasm", "-o", str(tmp / "a.zkir")) == 0
         assert cli("run", str(tmp / "a.zkir"), "--input", "2", "--input",
                    "3") == 0
+        assert cli("run", str(tmp / "a.zkir"), "--input", "2", "--input",
+                   "3", "--engine", "oracle") == 0
         assert cli("prove", str(tmp / "a.zkir"), "--input", "2", "--input",
                    "3", "--bind", "-o", str(tmp / "p.json")) == 0
         assert cli("verify", str(tmp / "p.json"), "--binary",
                    str(tmp / "a.zkir")) == 0
     assert out.getvalue().endswith("VALID\n"), out.getvalue()
     assert "halt=2 cycles=11 exit=0 outputs=[5]\n" in out.getvalue()
+    assert "halt=exit cycles=11 exit=0 outputs=[5]\n" in out.getvalue()
     assert json.loads((tmp / "p.json").read_text())["io"] == {
         "inputs": [2, 3], "outputs": [5]}
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

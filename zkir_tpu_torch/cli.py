@@ -4,13 +4,14 @@ Counterpart of ``zkir_tpu/cli.py``, with the reference's arguments and
 printed lines.  Everything that computes runs on ``--device`` (default
 ``cuda``); without a GPU and without ``--device cpu``, ``run``, ``prove``
 and ``verify`` fail with a message instead of running quietly on the CPU
-(``asm``, ``disasm`` and ``run --engine native`` are host code).
+(``asm``, ``disasm`` and ``run --engine native|oracle`` are host code).
 
 Usage:
     python -m zkir_tpu_torch asm program.zkasm -o program.zkir
     python -m zkir_tpu_torch disasm program.zkir
     python -m zkir_tpu_torch run program.zkir --input 5
     python -m zkir_tpu_torch run program.zkir --input 5 --engine native
+    python -m zkir_tpu_torch run program.zkir --input 5 --engine oracle
     python -m zkir_tpu_torch prove program.zkir --input 5 --bind -o proof.json
     python -m zkir_tpu_torch verify proof.json --binary program.zkir
     python -m zkir_tpu_torch --device cpu prove program.zkasm --input 5
@@ -19,14 +20,15 @@ Usage:
 counterpart of the reference's ``tpu``; the default on the card) or
 ``native`` (the reference's default: the C++ core on the host, which stops
 at ``--max-cycles`` and exits 1 on any halt but EBREAK and EXIT; the
-default with ``--device cpu``, and refused with an explicit ``--device
-cuda``).  ``prove --streaming [--col-block N]`` proves with the
+default with ``--device cpu``) or ``oracle`` (the scalar Python VM of
+``runtime/vm.py``, the specification the other engines are held to;
+exit 0); both host engines are refused beside an explicit ``--device
+cuda``.  ``prove --streaming [--col-block N]`` proves with the
 column-streaming prover (the same proof in less device memory; always the
 full constraint set, the program bound only with ``--bind``); it refuses
-``--checkpoint-dir``, which it would not honour.  Not ported: the
-``oracle`` engine and ``--mesh`` (they raise ``NotImplementedError``
-naming their ROADMAP items), and ``warm`` (there is no compile cache to
-fill).
+``--checkpoint-dir``, which it would not honour.  Not ported: ``--mesh``
+(it raises ``NotImplementedError`` naming its ROADMAP item), and ``warm``
+(there is no compile cache to fill).
 """
 
 from __future__ import annotations
@@ -75,9 +77,13 @@ def cmd_run(args) -> int:
               f"exit={result.exit_code} outputs={result.outputs}")
         return 0 if result.halt in (HALT_EBREAK, HALT_EXIT) else 1
     if args.engine == "oracle":
-        raise NotImplementedError(
-            "run --engine oracle is not ported to zkir_tpu_torch yet "
-            "(ROADMAP Queue 1: run --engine oracle, the Python oracle VM)")
+        from .runtime import VM, VMConfig
+
+        result = VM(program, inputs,
+                    VMConfig(max_cycles=args.max_cycles)).run()
+        print(f"halt={result.halt_reason.reason.value} cycles={result.cycles} "
+              f"exit={result.halt_reason.code} outputs={result.outputs}")
+        return 0
     from .interp import InterpConfig, TpuInterpreter
 
     interp = TpuInterpreter(program, InterpConfig(lanes=1, chunk=256),
@@ -185,8 +191,8 @@ def main(argv=None) -> int:
     p.add_argument("--engine", choices=["oracle", "native", "gpu"],
                    help="gpu: the batched interpreter on --device (the "
                         "default); native: the C++ core on the host, no "
-                        "GPU (the default with --device cpu); oracle: not "
-                        "ported yet")
+                        "GPU (the default with --device cpu); oracle: the "
+                        "scalar Python VM on the host")
     p.add_argument("--max-cycles", type=int, default=1_000_000)
     p.set_defaults(fn=cmd_run)
 
@@ -223,9 +229,9 @@ def main(argv=None) -> int:
     if args.fn is cmd_run:
         if args.engine is None:
             args.engine = "native" if args.device == "cpu" else "gpu"
-        if args.engine == "native" and args.device == "cuda":
+        if args.engine in ("native", "oracle") and args.device == "cuda":
             raise SystemExit(
-                "error: run --engine native runs on the host; drop "
+                f"error: run --engine {args.engine} runs on the host; drop "
                 "--device cuda, or pass --engine gpu to run on the GPU")
     args.device = args.device or "cuda"
     # asm, disasm and the host engines of run need no device.

@@ -92,18 +92,12 @@ def machine_state_from_reference(arrays: Dict[str, np.ndarray], *, device):
     """The port's ``interp.MachineState`` on ``device`` from the numpy
     fields of a reference ``MachineState`` (a dict by field name, or a
     reference checkpoint ``.npz`` opened with ``np.load``): each
-    ``*_lo``/``*_hi`` pair of uint32 limbs becomes one int64 bit pattern.
-    The reference's ``accum`` column belongs to the deferred-carry model,
-    which the port does not run: it must be all zero."""
+    ``*_lo``/``*_hi`` pair of uint32 limbs becomes one int64 bit pattern;
+    ``accum`` (the deferred-carry model's accumulated registers) and the
+    other columns carry over as they are."""
     import torch
 
     from .interp.columnar import _STATE_DTYPES, MachineState
-
-    if np.asarray(arrays["accum"]).any():
-        raise NotImplementedError(
-            "a reference state with accumulated registers (deferred=True) "
-            "cannot be carried over (ROADMAP Queue 1: the deferred-carry "
-            "model)")
 
     def word(name):
         lo = np.asarray(arrays[f"{name}_lo"], dtype=np.uint64)
@@ -115,8 +109,8 @@ def machine_state_from_reference(arrays: Dict[str, np.ndarray], *, device):
         "inputs": word("inputs"), "outputs": word("outputs"),
         "cycles": np.asarray(arrays["cycles"]).astype(np.int64),
         **{k: np.asarray(arrays[k])
-           for k in ("bound_bits", "halted", "mem", "n_inputs", "input_pos",
-                     "out_pos")}}
+           for k in ("bound_bits", "accum", "halted", "mem", "n_inputs",
+                     "input_pos", "out_pos")}}
     return MachineState(**{
         k: torch.from_numpy(np.array(v)).to(
             device=device, dtype=_STATE_DTYPES[k])
@@ -125,7 +119,7 @@ def machine_state_from_reference(arrays: Dict[str, np.ndarray], *, device):
 
 def machine_state_to_reference(state) -> Dict[str, np.ndarray]:
     """The way back: the reference ``MachineState``'s fields as numpy
-    arrays (uint32 limb pairs, ``accum`` all zero), by field name."""
+    arrays (uint32 limb pairs), by field name."""
     host = {k: v.cpu().numpy() for k, v in zip(state._fields, state)}
     out = {}
     for name in ("pc", "regs", "exit", "inputs", "outputs"):
@@ -133,8 +127,7 @@ def machine_state_to_reference(state) -> Dict[str, np.ndarray]:
         out[f"{name}_lo"] = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         out[f"{name}_hi"] = (bits >> np.uint64(32)).astype(np.uint32)
     out["cycles"] = host["cycles"].astype(np.uint32)
-    out["accum"] = np.zeros(host["regs"].shape, dtype=np.int32)
-    for name in ("bound_bits", "halted", "mem", "n_inputs", "input_pos",
-                 "out_pos"):
+    for name in ("bound_bits", "accum", "halted", "mem", "n_inputs",
+                 "input_pos", "out_pos"):
         out[name] = host[name]
     return out

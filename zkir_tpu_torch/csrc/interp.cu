@@ -42,11 +42,25 @@
 //   registers and bounds are one coalesced store each, and its scalars
 //   wait in shared memory until 32 rows are stored at once.
 //
+// The deferred-carry model (InterpConfig(deferred=True); the template
+// parameter DEFERRED, so that the plain model's build keeps its
+// instructions): ADD, SUB and ADDI add limbs without extracting carries
+// and mark rd accumulated; an observation point first normalizes rs1 and,
+// for the two-source ones, an accumulated rs2 (runtime/deferred.py,
+// normalize.py, execute.py::execute_with_deferred).  A lane's accumulated
+// registers are one 16-bit mask in a register, the same in every thread of
+// its warp.  The normalized sources are written back at the commit (or at
+// a fault, as the reference's step writes them for any lane that runs), so
+// that the trace row stores the pre-state.  The row adds the pre-state's
+// mask (accum_mask); the normalization witness is a function of the row,
+// made on the host (columnar.py::_norm_witness).
+//
 // Bound on the H100: the instructions of a cycle (a dependent chain per
-// lane); with a trace, also the 244 bytes a row writes.  A single lane
-// uses a single warp of the card, so every instruction of a cycle waits
-// for the one before: fewer instructions a cycle is what makes it faster
-// (zkir_tpu_torch/tools/interp_bench.py splits its clocks by phase).
+// lane); with a trace, also the 244 bytes a row writes (248 deferred).  A
+// single lane uses a single warp of the card, so every instruction of a
+// cycle waits for the one before: fewer instructions a cycle is what makes
+// it faster (zkir_tpu_torch/tools/interp_bench.py splits its clocks by
+// phase).
 //
 // Written in CUDA C++ rather than Triton: a sequential machine per lane
 // with data-dependent control flow, gathers and scatters of 1 to 8 bytes
@@ -87,21 +101,24 @@ extern "C" int zk_clocks_take(unsigned long long* out) {
 #endif
 
 // The descriptor's slots (64-bit words; pointers as integers), filled by
-// zkir_tpu_torch/interp/columnar.py::_descriptor in this order.  The last
-// five: the decoded program (uint4 [n_words], columnar.py::decode_table);
+// zkir_tpu_torch/interp/columnar.py::_descriptor in this order.  After the
+// trace: the decoded program (uint4 [n_words], columnar.py::decode_table);
 // each lane's next chunk (int32 [lanes], or 0: every lane at seg_lo); the
-// launch's chunks [seg_lo, seg_hi); 1 for a warp per lane.
+// launch's chunks [seg_lo, seg_hi); 1 for a warp per lane; 1 for the
+// deferred model, its limb widths (normalized, accumulated) and the
+// observation points' opcode mask (bits 0-63, 64-127).
 enum {
     D_CODE, D_N_WORDS, D_LANES, D_CHUNK,
-    D_PC, D_REGS, D_BOUND, D_HALTED, D_EXIT, D_CYCLES,
+    D_PC, D_REGS, D_BOUND, D_ACCUM, D_HALTED, D_EXIT, D_CYCLES,
     D_MEM, D_MEM_STRIDE, D_LOW_BYTES, D_STACK_BYTES, D_HAS_MEM,
     D_INPUTS, D_N_INPUTS, D_INPUT_POS, D_MAX_INPUTS,
     D_OUTPUTS, D_OUT_POS, D_MAX_OUTPUTS,
     D_COLLECT,
     T_VALID, T_CYCLE, T_PC, T_WORD, T_REGS, T_BOUNDS,
     T_MEM_VALID, T_MEM_ADDR, T_MEM_VALUE, T_MEM_WIDTH, T_MEM_IS_WRITE,
-    T_RC_VALID, T_RC_VALUE,
+    T_RC_VALID, T_RC_VALUE, T_ACCUM_MASK,
     D_DECODED, D_LANE_CHUNK, D_SEG_LO, D_SEG_HI, D_WARP,
+    D_DEFERRED, D_NORM_BITS, D_LIMB_BITS, D_OBS_LO, D_OBS_HI,
     D_COUNT
 };
 
@@ -173,9 +190,20 @@ __device__ __forceinline__ void store_bytes(uint8_t* p, int width, u64 v) {
     for (int k = 0; k < width; ++k) p[k] = (uint8_t)(v >> (8 * k));
 }
 
+// normalize.rs:85-105: a register word of two limbs (of lb bits where it
+// holds accumulated limbs, else nb) carry-extracted into two nb-bit limbs,
+// the carry out of the top one dropped.
+__device__ __forceinline__ u64 normalized(u64 v, bool accumulated, int nb, int lb) {
+    const int bits = accumulated ? lb : nb;
+    const u64 mask = (1ull << bits) - 1, nmask = (1ull << nb) - 1;
+    const u64 l0 = v & mask, l1 = ((v >> bits) & mask) + (l0 >> nb);
+    return (l0 & nmask) | ((l1 & nmask) << nb);
+}
+
 // A trace row's scalar columns at element e (row x lanes + lane): the
 // packed word carries word | width << 32 | mem_valid << 40 |
-// mem_is_write << 41 | rc_valid << 42.
+// mem_is_write << 41 | rc_valid << 42 | accum_mask << 48.
+template <bool DEFERRED>
 __device__ __forceinline__ void put_row(const Interp& a, int e, u64 cycle,
                                         u64 pc, u64 addr, u64 value,
                                         u64 rc_value, u64 packed) {
@@ -190,9 +218,10 @@ __device__ __forceinline__ void put_row(const Interp& a, int e, u64 cycle,
     ptr<uint8_t>(a, T_MEM_IS_WRITE)[e] = (packed >> 41) & 1;
     ptr<uint8_t>(a, T_RC_VALID)[e] = (packed >> 42) & 1;
     ptr<u64>(a, T_RC_VALUE)[e] = rc_value;
+    if constexpr (DEFERRED) ptr<int>(a, T_ACCUM_MASK)[e] = (int)(packed >> 48);
 }
 
-template <bool WARP, bool COLLECT>
+template <bool WARP, bool COLLECT, bool DEFERRED>
 __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
     // The thread layout's register tile (the warp layout keeps registers
     // in registers and leaves this unused).
@@ -245,6 +274,20 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
             s_bound[r][tx] = g_bound[r];
         }
     }
+    // The deferred model: bit r of acc is 1 where register r holds
+    // accumulated limbs; nb and lb are the limbs' widths.
+    unsigned acc = 0;
+    int* g_accum = ptr<int>(a, D_ACCUM) + lane * 16;
+    const int nb = (int)a.d[D_NORM_BITS], lb = (int)a.d[D_LIMB_BITS];
+    const u64 obs_lo = (u64)a.d[D_OBS_LO], obs_hi = (u64)a.d[D_OBS_HI];
+    if constexpr (DEFERRED) {
+        if constexpr (WARP) {
+            acc = __ballot_sync(FULL_MASK, g_accum[j & 15] == 1) & 0xFFFFu;
+        } else {
+#pragma unroll
+            for (int r = 0; r < 16; ++r) acc |= (unsigned)(g_accum[r] == 1) << r;
+        }
+    }
     // Register r's value and bound; in the warp layout every thread of the
     // warp calls these together (control flow depends only on the lane).
     auto reg = [&](int r) -> u64 {
@@ -280,8 +323,8 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
           if constexpr (WARP && COLLECT) {
               if (j < staged_to - staged_from) {
                   const u64* slot = s_rows[tx / 32][j];
-                  put_row(a, (row0 + staged_from + j) * (int)lanes + (int)lane,
-                          slot[0], slot[1], slot[2], slot[3], slot[4], slot[5]);
+                  put_row<DEFERRED>(a, (row0 + staged_from + j) * (int)lanes + (int)lane,
+                                    slot[0], slot[1], slot[2], slot[3], slot[4], slot[5]);
               }
               __syncwarp();
               staged_from = staged_to;
@@ -290,21 +333,76 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
       for (int t = 0; t < chunk; ++t) {
         // ---- fetch, decode, operands ----
         // (pc - CODE_BASE) / 4 wraps past n_words below CODE_BASE.
-        const u64 word_at = (pc - CODE_BASE) >> 2;
-        if (__builtin_expect(word_at >= n_words || (pc & 3), 0)) {
-            halted = HALT_ERROR;
-            break;
+        u64 word_at = (pc - CODE_BASE) >> 2;
+        const bool fetch_fault = word_at >= n_words || (pc & 3);
+        if (__builtin_expect(fetch_fault, 0)) {
+            if constexpr (!DEFERRED) {
+                halted = HALT_ERROR;
+                break;
+            }
+            // The deferred model runs word 0's normalizations before the
+            // fault, as the reference's step does for a pc outside the code.
+            word_at = 0;
         }
         const uint4 e = decoded[word_at];
         const int cls = F_CLASS(e.x);
         const int rd = F_RD(e.x);
         const u64 imm = (u64)(long long)(int)e.y;
         const bool use_imm = F_IMM(e.x), neg = F_NEG(e.x);
+        const int rs1 = F_RS1(e.x), rs2 = F_RS2(e.x);
 
-        const u64 a_raw = reg(F_RS1(e.x));
-        const u64 b_raw = reg(F_RS2(e.x));
-        const int a_bound = bound(F_RS1(e.x));
-        const int b_bound = bound(F_RS2(e.x));
+        u64 a_raw = reg(rs1);
+        u64 b_raw = reg(rs2);
+        const int a_bound = bound(rs1);
+        const int b_bound = bound(rs2);
+        // The deferred model: the registers written back normalized at the
+        // commit (0: none), and the pre-state's mask for the trace row.  An
+        // observation point normalizes rs1 (R0 never) and, unless it is an
+        // immediate form, rs2 where it is accumulated: after rs1, so that
+        // rs1 == rs2 is normalized once.
+        int w1 = 0, w2 = 0;
+        u64 v1 = 0, v2 = 0;
+        const unsigned acc_pre = acc;
+        if constexpr (DEFERRED) {
+            const int opc = e.w & 0x7F;
+            if ((opc < 64 ? obs_lo >> opc : obs_hi >> (opc - 64)) & 1) {
+                if (rs1 != 0) {
+                    a_raw = normalized(a_raw, (acc >> rs1) & 1, nb, lb);
+                    w1 = rs1; v1 = a_raw; acc &= ~(1u << rs1);
+                    if (rs2 == rs1) b_raw = a_raw;
+                }
+                if (!use_imm && rs2 != 0 && ((acc >> rs2) & 1)) {
+                    b_raw = normalized(b_raw, true, nb, lb);
+                    w2 = rs2; v2 = b_raw; acc &= ~(1u << rs2);
+                }
+            }
+        }
+        // ADD, ADDI and SUB of the deferred model (deferred.rs): the limbs
+        // of each source (lb bits where it is accumulated, else nb; an
+        // immediate's two nb-bit limbs) added without extracting carries,
+        // SUB wrapping each limb at 64 bits.  Where an ADD's limb reaches
+        // 2^lb, both sources are normalized (and written back) and added
+        // again.  limb0 is OR'd in unmasked (state.rs:184-192).
+        auto deferred_add = [&](bool sub) -> u64 {
+            const bool acc_a = (acc >> rs1) & 1, acc_b = (acc >> rs2) & 1;
+            const int ba = acc_a ? lb : nb, bb = acc_b ? lb : nb;
+            const u64 nmask = (1ull << nb) - 1;
+            const u64 a0 = a_raw & ((1ull << ba) - 1);
+            const u64 a1 = (a_raw >> ba) & ((1ull << ba) - 1);
+            const u64 o0 = use_imm ? imm & nmask : b_raw & ((1ull << bb) - 1);
+            const u64 o1 = use_imm ? (imm >> nb) & nmask : (b_raw >> bb) & ((1ull << bb) - 1);
+            if (sub) return (a0 - o0) | ((a1 - o1) << lb);
+            u64 d0 = a0 + o0, d1 = a1 + o1;
+            if ((d0 | d1) >> lb) {
+                const u64 pa = normalized(a_raw, acc_a, nb, lb);
+                const u64 pb = normalized(b_raw, acc_b, nb, lb);
+                d0 = (pa & nmask) + (use_imm ? o0 : pb & nmask);
+                d1 = ((pa >> nb) & nmask) + (use_imm ? o1 : (pb >> nb) & nmask);
+                w1 = rs1; v1 = pa; acc &= ~(1u << rs1);
+                if (!use_imm) { w2 = rs2; v2 = pb; acc &= ~(1u << rs2); }
+            }
+            return d0 | (d1 << lb);
+        };
         CLK(0)
 
         // ---- execute: a jump on the class, then the slow path's switch
@@ -334,8 +432,14 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
         int halt_to = HALT_NONE;
 
         switch (cls) {
-        case C_ADD: result = (a40 + c40) & M40; new_bound = imax(a_bound, c_bound) + 1; break;
-        case C_SUB: result = (a40 - b40) & M40; new_bound = imax(a_bound, b_bound); break;
+        case C_ADD:
+            if constexpr (DEFERRED) result = deferred_add(false);
+            else result = (a40 + c40) & M40;
+            new_bound = imax(a_bound, c_bound) + 1; break;
+        case C_SUB:
+            if constexpr (DEFERRED) result = deferred_add(true);
+            else result = (a40 - b40) & M40;
+            new_bound = imax(a_bound, b_bound); break;
         case C_MUL:
             result = rc_value = (a40 * b40) & M40; new_bound = a_bound + b_bound; break;
         case C_AND: result = a40 & c40; new_bound = imin(a_bound, c_bound); break;
@@ -435,7 +539,12 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
         CLK(2)
 
         // ---- a fault beats a pause beats a commit ----
+        if constexpr (DEFERRED) err = err || fetch_fault;
         if (__builtin_expect(err, 0)) {
+            if constexpr (DEFERRED) {  // the normalizations stay
+                if (w1) set_reg(w1, v1);
+                if (w2) set_reg(w2, v2);
+            }
             halted = HALT_ERROR;
             break;
         }
@@ -453,7 +562,8 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
             const u64 value = is_store ? (b_raw & wmask) : loaded;
             const u64 packed = e.w | (u64)width << 32
                 | (u64)(commit && width > 0) << 40 | (u64)is_store << 41
-                | (u64)(commit && (op == 0x00 || op == 0x02) && new_bound > 40) << 42;
+                | (u64)(commit && (op == 0x00 || op == 0x02) && new_bound > 40) << 42
+                | (DEFERRED ? (u64)acc_pre << 48 : 0);
             if constexpr (WARP) {
                 if (j < 16) {
                     ptr<u64>(a, T_REGS)[row * 16 + j] = my_reg;
@@ -472,7 +582,7 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
                     t_regs[r] = s_regs[r][tx];
                     t_bounds[r] = s_bound[r][tx];
                 }
-                put_row(a, row, cycles, pc, addr, value, rc_value, packed);
+                put_row<DEFERRED>(a, row, cycles, pc, addr, value, rc_value, packed);
             }
         }
         CLK(3)
@@ -483,9 +593,15 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
         }
 
         // ---- commit ----
+        if constexpr (DEFERRED) {
+            if (w1) set_reg(w1, v1);
+            if (w2) set_reg(w2, v2);
+        }
         if (writes && rd != 0) {
             set_reg(rd, result);
             set_bound(rd, new_bound);
+            // Only the deferred writes mark rd; the others leave its mark.
+            if constexpr (DEFERRED) if (cls <= C_SUB) acc |= 1u << rd;
         }
         if (__builtin_expect(cls == C_SLOW, 0)) {
             if (is_store) store_bytes(mem + off, width, b_raw);
@@ -518,12 +634,14 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
         if (j < 16) {
             g_regs[j] = my_reg;
             g_bound[j] = my_bound;
+            if constexpr (DEFERRED) g_accum[j] = (acc >> j) & 1;
         }
     } else {
 #pragma unroll
         for (int r = 0; r < 16; ++r) {
             g_regs[r] = s_regs[r][tx];
             g_bound[r] = s_bound[r][tx];
+            if constexpr (DEFERRED) g_accum[r] = (acc >> r) & 1;
         }
     }
     if (leader) {
@@ -537,9 +655,18 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(const Interp a) {
     }
 }
 
-template <bool WARP, bool COLLECT>
+template <bool WARP, bool COLLECT, bool DEFERRED>
 static void launch_layout(const Interp& a, unsigned blocks, cudaStream_t stream) {
-    interp_kernel<WARP, COLLECT><<<blocks, THREADS, 0, stream>>>(a);
+    interp_kernel<WARP, COLLECT, DEFERRED><<<blocks, THREADS, 0, stream>>>(a);
+}
+
+template <bool DEFERRED>
+static void launch_model(const Interp& a, bool warp, bool collect,
+                         unsigned blocks, cudaStream_t s) {
+    if (warp && collect) launch_layout<true, true, DEFERRED>(a, blocks, s);
+    else if (warp) launch_layout<true, false, DEFERRED>(a, blocks, s);
+    else if (collect) launch_layout<false, true, DEFERRED>(a, blocks, s);
+    else launch_layout<false, false, DEFERRED>(a, blocks, s);
 }
 
 static int launch(const long long* desc, void* stream) {
@@ -553,10 +680,8 @@ static int launch(const long long* desc, void* stream) {
     const long long per_block = warp ? THREADS / 32 : THREADS;
     const unsigned blocks = (unsigned)((a.d[D_LANES] + per_block - 1) / per_block);
     cudaStream_t s = (cudaStream_t)stream;
-    if (warp && collect) launch_layout<true, true>(a, blocks, s);
-    else if (warp) launch_layout<true, false>(a, blocks, s);
-    else if (collect) launch_layout<false, true>(a, blocks, s);
-    else launch_layout<false, false>(a, blocks, s);
+    if (a.d[D_DEFERRED]) launch_model<true>(a, warp, collect, blocks, s);
+    else launch_model<false>(a, warp, collect, blocks, s);
     return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,16 @@ double, launches one segment at a time, services the crypto syscalls of
 paused lanes (SHA-256, Poseidon2, Keccak, Blake3) on the host between
 launches, and copies the trace to the host once, at the end.
 
-Not ported: ``InterpConfig(deferred=True)`` (the deferred-carry model and
-its ``norm_*`` trace columns) raises ``NotImplementedError``.
+``InterpConfig(deferred=True)`` runs the deferred-carry model of the
+reference (its specification: ``runtime/deferred.py``, ``normalize.py``
+and ``execute.py::execute_with_deferred``): ADD, SUB and ADDI add limbs
+without extracting carries and mark rd accumulated (``MachineState.accum``);
+an observation point (``runtime/observation.py``) first normalizes rs1
+and, for the two-source ones, an accumulated rs2.  Its trace adds
+``accum_mask`` (the pre-state's accumulated registers, from the device)
+and the rs1 normalization witness ``norm_*``, which the host derives from
+the row's pre-state registers, ``accum_mask`` and word
+(``_merge_trace_host``).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..runtime.observation import OBSERVATION_POINTS
 from ..spec.memlayout import CODE_BASE, STACK_TOP
 from ..spec.opcodes import Op
 from ..spec.program import Program
@@ -78,7 +87,7 @@ class InterpConfig:
     enable_memory: bool = True     # auto-cleared when the program has no
                                    # loads/stores/crypto (static analysis)
     collect_trace: bool = False
-    deferred: bool = False         # not ported: raises
+    deferred: bool = False         # the deferred-carry model
     normalized_bits: int = 20
     limb_bits: int = 30
 
@@ -89,6 +98,7 @@ class MachineState(NamedTuple):
     pc: torch.Tensor           # i64 [L]
     regs: torch.Tensor         # i64 [L, 16]
     bound_bits: torch.Tensor   # i32 [L, 16] (ValueBound.max_bits column)
+    accum: torch.Tensor        # i32 [L, 16] (1 = accumulated, deferred model)
     halted: torch.Tensor       # i32 [L]
     exit: torch.Tensor         # i64 [L]
     cycles: torch.Tensor       # i64 [L]
@@ -102,9 +112,10 @@ class MachineState(NamedTuple):
 
 _STATE_DTYPES = {
     "pc": torch.int64, "regs": torch.int64, "bound_bits": torch.int32,
-    "halted": torch.int32, "exit": torch.int64, "cycles": torch.int64,
-    "mem": torch.uint8, "inputs": torch.int64, "n_inputs": torch.int32,
-    "input_pos": torch.int32, "outputs": torch.int64, "out_pos": torch.int32,
+    "accum": torch.int32, "halted": torch.int32, "exit": torch.int64,
+    "cycles": torch.int64, "mem": torch.uint8, "inputs": torch.int64,
+    "n_inputs": torch.int32, "input_pos": torch.int32,
+    "outputs": torch.int64, "out_pos": torch.int32,
 }
 
 # Trace columns a chunk emits: name -> (dtype, trailing shape).  The flags
@@ -118,17 +129,36 @@ _TRACE_COLUMNS = {
     "mem_is_write": (torch.bool, ()), "rc_valid": (torch.bool, ()),
     "rc_value": (torch.int64, ()),
 }
+# The deferred model's column from the device: bit r of a row is 1 where
+# register r held accumulated limbs before the row's instruction.
+_DEFERRED_COLUMNS = {"accum_mask": (torch.int32, ())}
+
+
+def trace_columns(deferred: bool) -> Dict[str, Any]:
+    """The trace columns the device writes: name -> (dtype, trailing
+    shape)."""
+    return {**_TRACE_COLUMNS, **(_DEFERRED_COLUMNS if deferred else {})}
+
+
+# The observation points, by opcode, and as the kernel's opcode mask (bit
+# op); of them the immediate forms (ANDI ORI XORI SLLI SRLI SRAI) normalize
+# rs1 only, the others rs1 and, where it holds accumulated limbs, rs2.
+_OBSERVED = np.isin(np.arange(128), [int(op) for op in OBSERVATION_POINTS])
+_OBSERVES = sum(1 << int(op) for op in OBSERVATION_POINTS)
 
 
 # The state tensors the kernel writes.
-_MUTABLE = ("pc", "regs", "bound_bits", "halted", "exit", "cycles", "mem",
-            "input_pos", "outputs", "out_pos")
+_MUTABLE = ("pc", "regs", "bound_bits", "accum", "halted", "exit", "cycles",
+            "mem", "input_pos", "outputs", "out_pos")
 # Bytes of trace the first segment of a run may take; later segments
 # double.  The kernel indexes the 16 registers of a segment's row x lane
 # with 32-bit integers: rows x lanes stays below MAX_SEGMENT_CELLS.
 FIRST_SEGMENT_BYTES = 1 << 26
 MAX_SEGMENT_CELLS = 1 << 27
+# Bytes of a lane's trace row on the device (``trace_columns``), and with
+# the deferred model's ``accum_mask``.
 TRACE_ROW_BYTES = 244
+DEFERRED_ROW_BYTES = 248
 # Up to this many lanes a warp runs each lane, beyond it a thread.  On an
 # H100 (chip_smoke.py's sweeps of the loop program): without a trace the
 # layouts tie up to 512 lanes and a thread per lane wins from 1,024; with a
@@ -306,6 +336,18 @@ def _select(conds, vals, default):
     return out
 
 
+def _normalize_plain(v, accumulated, nb: int, lb: int):
+    """Carry-extract the register words ``v`` (limbs of ``lb`` bits where
+    ``accumulated``, else ``nb``) into two ``nb``-bit limbs, the top carry
+    dropped (``runtime/normalize.py``): the packed words."""
+    bits = torch.where(accumulated, lb, nb)
+    mask = (1 << bits) - 1
+    l0 = v & mask
+    l1 = (u64_srl(v, bits) & mask) + (l0 >> nb)
+    nmask = (1 << nb) - 1
+    return (l0 & nmask) | ((l1 & nmask) << nb)
+
+
 def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
     """One cycle of every lane: (new state, trace row or None)."""
     dev = s.pc.device
@@ -364,7 +406,25 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
     # bit length of the sign-extended immediate as a u64 (64 when negative)
     imm_bits = u64_bit_length(imm)
 
-    regs, bound = s.regs, s.bound_bits
+    regs, bound, accum = s.regs, s.bound_bits, s.accum
+    if cfg.deferred:
+        # An observation point first normalizes rs1 (with a witness, which
+        # the host derives from the trace row) and, for the two-source
+        # ones, rs2 where it is accumulated; R0 never.
+        nb, lb = cfg.normalized_bits, cfg.limb_bits
+        observes = torch.from_numpy(_OBSERVED).to(dev)[op]
+        is_norm_one = ((op >= 0x13) & (op <= 0x15)) | is_imm_shift
+        is_norm_two = observes & ~is_norm_one
+        do1 = active & observes & (rs1_idx != 0)
+        acc1 = rd16(accum, rs1_idx) == 1
+        regs = wr16(regs, rs1_idx, do1,
+                    _normalize_plain(rd16(regs, rs1_idx), acc1, nb, lb))
+        accum = wr16(accum, rs1_idx, do1, zero)
+        acc2 = rd16(accum, rs2_idx) == 1       # after rs1's: rs1 == rs2
+        do2 = active & is_norm_two & (rs2_idx != 0) & acc2
+        regs = wr16(regs, rs2_idx, do2,
+                    _normalize_plain(rd16(regs, rs2_idx), acc2, nb, lb))
+        accum = wr16(accum, rs2_idx, do2, zero)
     a_raw = rd16(regs, rs1_idx)
     b_raw = rd16(regs, rs2_idx)
     rd_old = rd16(regs, rd_idx)
@@ -529,6 +589,41 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
     # cmov writes (value and bound) only when its condition holds.
     cmov_effective = ~is_cmov | cmov_cond
 
+    is_def = (op == Op.ADD) | (op == Op.SUB) | (op == Op.ADDI)
+    if cfg.deferred:
+        # ADD, SUB and ADDI add limbs without extracting carries: limbs of
+        # lb bits for accumulated sources, an immediate's two nb-bit limbs;
+        # SUB wraps each limb at 64 bits.  Where an ADD's limb would reach
+        # 2^lb, both sources are normalized, written back, and the limbs
+        # added again.  limb0 is OR'd in unmasked (state.rs:184-192).
+        acc_a = rd16(accum, rs1_idx) == 1
+        acc_b = rd16(accum, rs2_idx) == 1
+        bits_a = torch.where(acc_a, lb, nb)
+        bits_b = torch.where(acc_b, lb, nb)
+        al0 = a_raw & ((1 << bits_a) - 1)
+        al1 = u64_srl(a_raw, bits_a) & ((1 << bits_a) - 1)
+        nmask = (1 << nb) - 1
+        is_addi = op == Op.ADDI
+        o0 = torch.where(is_addi, imm & nmask, b_raw & ((1 << bits_b) - 1))
+        o1 = torch.where(is_addi, u64_srl(imm, nb) & nmask,
+                         u64_srl(b_raw, bits_b) & ((1 << bits_b) - 1))
+        is_sub = op == Op.SUB
+        d0 = torch.where(is_sub, al0 - o0, al0 + o0)
+        d1 = torch.where(is_sub, al1 - o1, al1 + o1)
+        overflow = ~is_sub & (((d0 >> lb) != 0) | ((d1 >> lb) != 0))
+        pa = _normalize_plain(a_raw, acc_a, nb, lb)
+        pb = _normalize_plain(b_raw, acc_b, nb, lb)
+        d0 = torch.where(overflow, (pa & nmask) + torch.where(
+            is_addi, o0, pb & nmask), d0)
+        d1 = torch.where(overflow, ((pa >> nb) & nmask) + torch.where(
+            is_addi, o1, (pb >> nb) & nmask), d1)
+        ovf_on = active & is_def & overflow
+        regs = wr16(regs, rs1_idx, ovf_on, pa)
+        accum = wr16(accum, rs1_idx, ovf_on, zero)
+        regs = wr16(regs, rs2_idx, ovf_on & ~is_addi, pb)
+        accum = wr16(accum, rs2_idx, ovf_on & ~is_addi, zero)
+        result = torch.where(is_def, d0 | (d1 << lb), result)
+
     # ---- bound propagation ----
     a_b, b_b = a_bound.to(i64), b_bound.to(i64)
     ib = imm_bits.to(i64)
@@ -554,6 +649,10 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
     wb = commit & writes_rd & cmov_effective & ~is_branch & ~is_store
     new_regs = wr16(regs, rd_idx, wb, result)
     new_bound_bits = wr16(bound, rd_idx, wb, new_bound)
+    if cfg.deferred:
+        # Only the deferred writes mark rd accumulated; the others leave
+        # its mark as it was (the reference's write_reg keeps it).
+        accum = wr16(accum, rd_idx, wb & is_def, const(1))
     # READ writes its value into r10; WRITE leaves the registers alone.
     new_regs = torch.cat(
         [new_regs[:, :10],
@@ -571,7 +670,7 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
         halted = torch.where(cond, torch.full_like(halted, code_), halted)
     new_state = MachineState(
         pc=torch.where(commit, next_pc, pc), regs=new_regs,
-        bound_bits=new_bound_bits, halted=halted.to(i32),
+        bound_bits=new_bound_bits, accum=accum, halted=halted.to(i32),
         exit=torch.where(commit & sys_exit, new_regs[:, 11], s.exit),
         cycles=s.cycles + commit.to(i64), mem=mem, inputs=s.inputs,
         n_inputs=s.n_inputs, input_pos=input_pos, outputs=outputs,
@@ -591,7 +690,7 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
         "cycle": s.cycles,
         "pc": pc,
         "word": word.to(torch.int32),
-        "regs": regs,
+        "regs": s.regs,
         "bounds": bound,
         "mem_valid": commit & is_mem & (width > 0),
         "mem_addr": addr,
@@ -604,13 +703,16 @@ def _step_plain(code, n_words: int, s: MachineState, cfg: InterpConfig):
         & (new_bound > 40),
         "rc_value": torch.where(op == Op.MUL, mul_r, add_r),
     }
+    if cfg.deferred:
+        bits = torch.arange(16, dtype=torch.int32, device=dev)
+        row["accum_mask"] = (s.accum << bits).sum(dim=1, dtype=torch.int32)
     return new_state, row
 
 
 def interp_chunk_plain(code, n_words: int, state: MachineState,
                        cfg: InterpConfig):
     """``cfg.chunk`` cycles of every lane in plain torch: (state, trace),
-    the trace a dict of ``[chunk, L, ...]`` tensors (``_TRACE_COLUMNS``) or
+    the trace a dict of ``[chunk, L, ...]`` tensors (``trace_columns``) or
     ``None`` without ``collect_trace``.  ``code`` is the int32 word vector
     the kernel takes.  Values of rows whose ``valid`` is false are
     unspecified."""
@@ -624,7 +726,7 @@ def interp_chunk_plain(code, n_words: int, state: MachineState,
     if not cfg.collect_trace:
         return state, None
     trace = {}
-    for name, (dtype, tail) in _TRACE_COLUMNS.items():
+    for name, (dtype, tail) in trace_columns(cfg.deferred).items():
         col = torch.zeros((cfg.chunk, cfg.lanes, *tail), dtype=dtype,
                           device=state.pc.device)
         if rows:
@@ -642,8 +744,10 @@ def _check_state(code, state: MachineState, cfg: InterpConfig) -> None:
     dev = state.pc.device
     L = cfg.lanes
     mem_bytes = (cfg.low_bytes + cfg.stack_bytes) if cfg.enable_memory else 1
+    _check_limbs(cfg)
     shapes = {
-        "pc": (L,), "regs": (L, 16), "bound_bits": (L, 16), "halted": (L,),
+        "pc": (L,), "regs": (L, 16), "bound_bits": (L, 16),
+        "accum": (L, 16), "halted": (L,),
         "exit": (L,), "cycles": (L,), "mem": (L, mem_bytes),
         "inputs": (L, cfg.max_inputs), "n_inputs": (L,), "input_pos": (L,),
         "outputs": (L, cfg.max_outputs), "out_pos": (L,)}
@@ -664,11 +768,15 @@ def _check_state(code, state: MachineState, cfg: InterpConfig) -> None:
                          "state's device")
 
 
-def _refuse_deferred(cfg: InterpConfig) -> None:
-    if cfg.deferred:
-        raise NotImplementedError(
-            "InterpConfig(deferred=True) is not ported to zkir_tpu_torch "
-            "yet (ROADMAP Queue 1: the deferred-carry model)")
+def _check_limbs(cfg: InterpConfig) -> None:
+    """The deferred model's limb widths as the reference computes them in
+    32-bit words: 1 <= normalized_bits <= limb_bits <= 31."""
+    if cfg.deferred and not (
+            1 <= cfg.normalized_bits <= cfg.limb_bits <= 31):
+        raise ValueError(
+            f"deferred model limbs of {cfg.normalized_bits} and "
+            f"{cfg.limb_bits} bits: need 1 <= normalized_bits <= "
+            "limb_bits <= 31")
 
 
 def _check_code(code, n_words: int) -> None:
@@ -684,11 +792,12 @@ def _check_cells(rows: int, cfg: InterpConfig) -> None:
                          "shorter chunks or segments")
 
 
-def _new_trace(rows: int, lanes: int, device) -> Dict[str, torch.Tensor]:
+def _new_trace(rows: int, lanes: int, device,
+               deferred: bool = False) -> Dict[str, torch.Tensor]:
     """Zeroed trace columns of ``rows`` rows: a row the kernel does not
     write keeps ``valid`` 0."""
     return {name: torch.zeros((rows, lanes, *tail), dtype=dt, device=device)
-            for name, (dt, tail) in _TRACE_COLUMNS.items()}
+            for name, (dt, tail) in trace_columns(deferred).items()}
 
 
 def interp_chunk(code, n_words: int, state: MachineState, cfg: InterpConfig,
@@ -700,13 +809,12 @@ def interp_chunk(code, n_words: int, state: MachineState, cfg: InterpConfig,
     CUDA state runs ``interp_run`` over the one-chunk segment [0, 1) on a
     copy of the state's mutable tensors, into a new trace; a CPU state
     takes the plain version."""
-    _refuse_deferred(cfg)
     _check_code(code, n_words)
     if not state.pc.is_cuda:
         return interp_chunk_plain(code, n_words, state, cfg)
     new = state._replace(**{name: getattr(state, name).clone()
                             for name in _MUTABLE})
-    trace = (_new_trace(cfg.chunk, cfg.lanes, state.pc.device)
+    trace = (_new_trace(cfg.chunk, cfg.lanes, state.pc.device, cfg.deferred)
              if cfg.collect_trace else None)
     if decoded is None:
         decoded = decode_table(code)
@@ -725,7 +833,6 @@ def interp_run(code, n_words: int, state: MachineState, lane_chunk,
     CUDA state is run in place by one launch of kernel K3 and returned; a
     CPU state takes ``interp_run_plain``, which returns a new state
     (``lane_chunk`` and ``trace`` are written in place on both)."""
-    _refuse_deferred(cfg)
     _check_code(code, n_words)
     if not state.pc.is_cuda:
         if lane_chunk is None:
@@ -745,7 +852,7 @@ def interp_run(code, n_words: int, state: MachineState, lane_chunk,
     if trace is not None:
         rows = (seg_hi - seg_lo) * cfg.chunk
         _check_cells(rows, cfg)
-        for name, (dt, tail) in _TRACE_COLUMNS.items():
+        for name, (dt, tail) in trace_columns(cfg.deferred).items():
             t = trace[name]
             if t.dtype != dt or tuple(t.shape) != (rows, cfg.lanes, *tail) \
                     or t.device != state.pc.device or not t.is_contiguous():
@@ -793,18 +900,22 @@ def _descriptor(code, n_words, s: MachineState, cfg: InterpConfig, trace, *,
     words = [
         code.data_ptr(), n_words, cfg.lanes, cfg.chunk,
         s.pc.data_ptr(), s.regs.data_ptr(), s.bound_bits.data_ptr(),
-        s.halted.data_ptr(), s.exit.data_ptr(), s.cycles.data_ptr(),
-        s.mem.data_ptr(), s.mem.shape[1], cfg.low_bytes, cfg.stack_bytes,
-        int(cfg.enable_memory),
+        s.accum.data_ptr(), s.halted.data_ptr(), s.exit.data_ptr(),
+        s.cycles.data_ptr(), s.mem.data_ptr(), s.mem.shape[1],
+        cfg.low_bytes, cfg.stack_bytes, int(cfg.enable_memory),
         s.inputs.data_ptr(), s.n_inputs.data_ptr(), s.input_pos.data_ptr(),
         cfg.max_inputs,
         s.outputs.data_ptr(), s.out_pos.data_ptr(), cfg.max_outputs,
         int(trace is not None),
-        *((trace[name].data_ptr() for name in _TRACE_COLUMNS)
-          if trace is not None else (0,) * len(_TRACE_COLUMNS)),
+        *((trace[name].data_ptr() if name in trace else 0
+           for name in trace_columns(True))
+          if trace is not None else (0,) * len(trace_columns(True))),
         0 if decoded is None else decoded.data_ptr(),
         0 if lane_chunk is None else lane_chunk.data_ptr(),
         *seg, int(warp),
+        int(cfg.deferred), cfg.normalized_bits, cfg.limb_bits,
+        # The observation points' opcode mask, bits 0-63 and 64-127.
+        int(_i64_bits(_OBSERVES & (2**64 - 1))), _OBSERVES >> 64,
     ]
     return (ctypes.c_longlong * len(words))(*words)
 
@@ -835,7 +946,7 @@ class TpuInterpreter:
         self.program = program
         self.config = config or InterpConfig()
         self.device = torch.device(device)
-        _refuse_deferred(self.config)
+        _check_limbs(self.config)
         code = np.asarray(program.code, dtype=np.uint32)
         # An empty program runs as one zero word, as in the reference.
         self.n_words = max(len(program.code), 1)
@@ -909,6 +1020,7 @@ class TpuInterpreter:
                           device=dev),
             regs=zeros((L, 16), torch.int64),
             bound_bits=torch.from_numpy(bounds).to(dev),
+            accum=zeros((L, 16), torch.int32),
             halted=zeros((L,), torch.int32),
             exit=zeros((L,), torch.int64),
             cycles=zeros((L,), torch.int64),
@@ -954,13 +1066,16 @@ class TpuInterpreter:
         if cfg.collect_trace:
             cells = cfg.chunk * cfg.lanes
             most = max(1, (MAX_SEGMENT_CELLS - 1) // cells)
-            size = max(1, min(k_max, most, FIRST_SEGMENT_BYTES
-                              // (TRACE_ROW_BYTES * cells)))
+            row_bytes = (DEFERRED_ROW_BYTES if cfg.deferred
+                         else TRACE_ROW_BYTES)
+            size = max(1, min(k_max, most,
+                              FIRST_SEGMENT_BYTES // (row_bytes * cells)))
         segments: List[Dict[str, torch.Tensor]] = []
         seg_lo = 0
         while True:
             seg_hi = min(seg_lo + size, k_max)
-            trace = (_new_trace((seg_hi - seg_lo) * cfg.chunk, cfg.lanes, dev)
+            trace = (_new_trace((seg_hi - seg_lo) * cfg.chunk, cfg.lanes,
+                                dev, cfg.deferred)
                      if cfg.collect_trace else None)
             while True:
                 state = interp_run(self.code, self.n_words, state,
@@ -1063,24 +1178,35 @@ class TpuInterpreter:
             cols = {key: [t[key] for t in segments] for key in segments[0]}
             result["trace"] = _merge_trace_host({
                 key: (c[0] if len(c) == 1 else torch.cat(c))[:rows]
-                .cpu().numpy() for key, c in cols.items()})
+                .cpu().numpy() for key, c in cols.items()}, self.config)
         return result
 
 
-def _merge_trace_host(t: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _merge_trace_host(t: Dict[str, np.ndarray],
+                      cfg: Optional[InterpConfig] = None
+                      ) -> Dict[str, np.ndarray]:
     """The reference's trace dict (keys, shapes, numpy dtypes) from the
     chunk's columns: unsigned views of the 64-bit words, and the columns
-    the device does not write (``accum_mask`` is 0 outside the deferred
-    model; ``rc_chunks`` are the four 10-bit chunks of ``rc_value``)."""
+    the device does not write (``rc_chunks`` are the four 10-bit chunks of
+    ``rc_value``; ``accum_mask`` is 0 outside the deferred model).  With
+    the deferred model (``accum_mask`` among the columns; limb widths from
+    ``cfg``) also the rs1 normalization witness of each row, a function of
+    its pre-state registers, ``accum_mask`` and word: ``norm_valid`` where
+    the row's instruction is an observation point with rs1 != 0,
+    ``norm_reg`` = rs1, the limbs read (``norm_acc0/1``), normalized
+    (``norm_n0/1``) and the carries (``norm_c0/1``); the other rows hold
+    the same function of rs1."""
     rc_value = t["rc_value"].view(np.uint64)
-    return {
+    deferred = "accum_mask" in t
+    out = {
         "valid": t["valid"],
         "cycle": t["cycle"],
         "pc": t["pc"].view(np.uint64),
         "word": t["word"].view(np.uint32),
         "regs": t["regs"].view(np.uint64),
         "bounds": t["bounds"],
-        "accum_mask": np.zeros(t["valid"].shape, dtype=np.uint32),
+        "accum_mask": (t["accum_mask"].view(np.uint32) if deferred else
+                       np.zeros(t["valid"].shape, dtype=np.uint32)),
         "mem_valid": t["mem_valid"],
         "mem_addr": t["mem_addr"].view(np.uint64),
         "mem_value": t["mem_value"].view(np.uint64),
@@ -1091,4 +1217,33 @@ def _merge_trace_host(t: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         "rc_chunks": np.stack(
             [(rc_value >> np.uint64(10 * c)) & np.uint64(0x3FF)
              for c in range(4)], axis=-1),
+    }
+    if deferred:
+        cfg = cfg or InterpConfig(deferred=True)
+        out.update(_norm_witness(out, cfg.normalized_bits, cfg.limb_bits))
+    return out
+
+
+def _norm_witness(t: Dict[str, np.ndarray], nb: int,
+                  lb: int) -> Dict[str, np.ndarray]:
+    """``norm_*`` of every row (``_merge_trace_host``)."""
+    word = t["word"].astype(np.int64)
+    op = word & 0x7F
+    sb = ((op >= 0x38) & (op <= 0x3B)) | ((op >= 0x40) & (op <= 0x45))
+    rs1 = np.where(sb, (word >> 7) & 0xF, (word >> 11) & 0xF)
+    v = np.take_along_axis(t["regs"], rs1[..., None], axis=-1)[..., 0]
+    acc = (t["accum_mask"].astype(np.int64) >> rs1) & 1
+    bits = np.where(acc == 1, lb, nb).astype(np.uint64)
+    mask = (np.uint64(1) << bits) - np.uint64(1)
+    l0 = v & mask
+    l1 = (v >> bits) & mask
+    n_mask, nb_ = np.uint64((1 << nb) - 1), np.uint64(nb)
+    c0 = l0 >> nb_
+    l1c = l1 + c0
+    return {
+        "norm_valid": t["valid"] & _OBSERVED[op] & (rs1 != 0),
+        "norm_reg": rs1.astype(np.int32),
+        "norm_acc0": l0, "norm_acc1": l1,
+        "norm_n0": l0 & n_mask, "norm_n1": l1c & n_mask,
+        "norm_c0": c0, "norm_c1": l1c >> nb_,
     }

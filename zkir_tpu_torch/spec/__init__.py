@@ -1,5 +1,5 @@
 """Host-side data model (copies of the ``zkir_tpu.spec`` modules the
-toolchain, the interpreter and the prover need)."""
+toolchain, the oracle VM, the interpreter and the prover need)."""
 
 from .config import Config
 from .registers import (
@@ -13,3 +13,5 @@ from .opcodes import Op, OPCODE_NAMES, VALID_OPCODES
 from .isa import DecodeError, Instruction
 from .memlayout import CODE_BASE, STACK_TOP
 from .program import Program, ProgramHeader
+from .bounds import BoundSource, CryptoType, ValueBound
+from .validation import validate_program, validate_instruction, ValidationError
