@@ -25,7 +25,12 @@ path):
    card, for exact equality, at the main path's shapes (timed with CUDA
    events, beside the least time the card could take) and at a few more
    (strided, broadcast and immediate operands; short, real and coset
-   transforms of one, two and three passes), plus the pinned Poseidon2
+   transforms of one, two and three passes; ``cm31_ntt`` also timed at the
+   streaming prover's block pairs [64, 2^16] and [64, 2^20], the partial
+   sums' LDE [238, 2^16] -> 2^18, one 2^24 column and rows 2^17 words
+   apart, each beside the replaced design's recorded time where there is
+   one and a bound whose
+   operations come from this build's SASS), plus the pinned Poseidon2
    known-answer vectors; ``p2_merkle_tree`` (a whole tree in one launch)
    against ``build_tree_plain`` and the per-level loop at every tree shape
    of the main path (2^18 .. 2^6 leaves) and at 2 and 4 leaves, timed
@@ -52,7 +57,9 @@ path):
    (4 lanes, a warp each; 2,048, a thread each), the same with a
    ``max_cycles`` that is not a multiple of the chunk,
    and golden E's program (SHA-256 pause and resume, its matrix equal to
-   the stored one); the proof-of-work search against its plain version;
+   the stored one), and SHA-256 of no input bytes from a pointer outside
+   both windows (halt 1, output 3820012610, as the reference); the
+   proof-of-work search against its plain version;
    one lane's clocks per cycle by phase (``tools/interp_bench.py``); the
    interpreter's cycles per second on the reference benchmark's loop
    program at 65,536 and 8,192 lanes, and both layouts (a thread or a
@@ -377,50 +384,152 @@ def phase_binary_layouts(results, gen) -> None:
         del x, pw
 
 
+# cm31_ntt's times as PERF.md section 6 recorded them for the design this
+# kernel replaced (H100 80GB HBM3, 700.00 W), by the keys of phase_ntt's
+# rows.  That kernel is no longer in the tree; tools/ntt_bench.py times it
+# beside this one on one card.
+NTT_PREVIOUS_MS = {"cm31_ntt": 4.7279,
+                   "cm31_ntt inverse [596, 2^16]": 1.1631,
+                   "lde [596, 2^16] -> 2^18 (2 x cm31_ntt)": 5.7871}
+
+
+def ntt_ops(ins, batch, log_n, first=0, products=0):
+    """Instructions a transform needs by the built kernel's SASS (``ins``:
+    ``tools/sass_count.py ntt_instructions``): every butterfly of stages
+    ``first`` .. log_n - 1 its sum and difference, and the fewest CM31
+    products over the splits of those stages into the kernel's register
+    steps of 1-3 stages; plus ``products`` CM31 products a row (``pre``,
+    ``post``).  A step of 2^r points whose lowest stage is g multiplies
+    points 1 .. 2^r - 1 of each group by a factor, 1 in the 2^-g of the
+    groups whose position bits below g are 0, and an 8-point step's DFT
+    adds two products (w^(n/8), w^(3n/8)); +-i is a swap."""
+    n = 1 << log_n
+
+    def step(g, r):
+        groups = n >> r
+        return (((1 << r) - 1) * (groups - (groups >> g))
+                + (2 * groups if r == 3 else 0))
+
+    fewest = [0] * (log_n + 1)     # fewest[g]: stages g .. log_n - 1
+    for g in range(log_n - 1, first - 1, -1):
+        fewest[g] = min(step(g, r) + fewest[g + r]
+                        for r in (1, 2, 3) if g + r <= log_n)
+    return batch * (ins["sum_difference"] * (n >> 1) * (log_n - first)
+                    + ins["cmul"] * (fewest[first] + products))
+
+
 def phase_ntt(results, gen) -> None:
-    """``cm31_ntt`` against the plain torch network: the prover's three
-    shapes timed, then one-, two- and three-pass sizes, short and real
-    inputs and the coset edges for equality."""
+    """``cm31_ntt`` against the plain torch network: the prover's shapes,
+    the streaming prover's blocks, the reference benchmark's 2^24 column
+    and rows of a wider matrix timed beside the replaced design's times
+    and the bound (bytes, or the butterflies' instructions counted from
+    this build's SASS); then one-, two- and three-pass sizes, short and
+    real inputs and the coset edges for equality."""
     import torch
 
+    from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.ops import ntt
     from zkir_tpu_torch.prover.prover import _coset_shift
+    from zkir_tpu_torch.prover.streaming import _eval_block
     from zkir_tpu_torch.spec.field import m31_inv
+    from zkir_tpu_torch.tools.sass_count import ntt_instructions
 
     shift = _coset_shift()
+    ins = ntt_instructions(_kernels._nvcc(), _kernels.CSRC,
+                           _kernels.BUILD / "sass_probe")
+    log(f"cm31_ntt SASS: {ins['cmul']:g} instructions a product, "
+        f"{ins['sum_difference']:g} a butterfly's sum and difference")
+    results["ntt_instructions"] = ins
+
+    def intt_plain(re, log_n):
+        return ntt.ntt_plain(re, None, log_n, True, scale=m31_inv(1 << log_n))
 
     def lde_plain(re, log_n, log_blowup):
-        c = ntt.ntt_plain(re, None, log_n, True, scale=m31_inv(1 << log_n))
+        c = intt_plain(re, log_n)
         return ntt.ntt_plain(c[0], c[1], log_n + log_blowup, False, pre=shift)
 
-    # Per butterfly: one CM31 product (4 products, 2 sums) and 4 sums.
-    def ntt_ops(batch, log_n):
-        return batch * (1 << (log_n - 1)) * log_n * 10
+    def row(key, kernel_fn, plain_fn, n_bytes, n_ops, iters=5):
+        compare("cm31_ntt", kernel_fn, plain_fn, iters, results,
+                plain_iters=1, n_bytes=n_bytes, n_ops=n_ops, key=key)
+        r = results[key]
+        r["previous_ms"] = NTT_PREVIOUS_MS.get(key)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        log(f"  {key}: {100 * r['share_of_bound']:.1f}% of the bound; "
+            f"the replaced design: {r['previous_ms'] or 'not measured'} ms")
 
-    # The trace block of the full constraint set (596 columns), then the
-    # range_lookup=False one (493), whose forward transform was the
-    # ``cm31_ntt`` row of earlier measurements.
-    for c in (596, 493):
-        cols = words(gen, (c, 1 << 16))
-        compare("cm31_ntt", lambda: ntt.lde(cols, None, 16, 2, shift=shift),
-                lambda: lde_plain(cols, 16, 2), 5, results, plain_iters=1,
-                n_bytes=8 * c * ((1 << 16) + 2 * (1 << 18)),
-                n_ops=ntt_ops(c, 16) + ntt_ops(c, 18),
-                key=f"lde [{c}, 2^16] -> 2^18 (2 x cm31_ntt)")
-        compare("cm31_ntt", lambda: ntt.intt(cols, None, 16),
-                lambda: ntt.ntt_plain(cols, None, 16, True,
-                                      scale=m31_inv(1 << 16)), 5, results,
-                plain_iters=1, n_bytes=8 * 3 * c * (1 << 16),
-                n_ops=ntt_ops(c, 16), key=f"cm31_ntt inverse [{c}, 2^16]")
+    # The trace block of the full constraint set (596 columns), the
+    # range_lookup=False one (493), and the partial sums' (238 CM31
+    # columns, real and imaginary parts: lde of real and of complex input
+    # is the same launch pair; the prover's is real).
+    for c in (596, 493, 238):
+        n, big = 1 << 16, 1 << 18
+        cols = words(gen, (c, n))
+        row(f"lde [{c}, 2^16] -> 2^18 (2 x cm31_ntt)",
+            lambda: ntt.lde(cols, None, 16, 2, shift=shift),
+            lambda: lde_plain(cols, 16, 2), 8 * c * (n + 2 * big),
+            ntt_ops(ins, c, 16) + ntt_ops(ins, c, 18, first=2,
+                                          products=n))
+        if c == 238:
+            continue
+        row(f"cm31_ntt inverse [{c}, 2^16]", lambda: ntt.intt(cols, None, 16),
+            lambda: intt_plain(cols, 16), 8 * 3 * c * n, ntt_ops(ins, c, 16))
         del cols
-        big = (words(gen, (c, 1 << 18)), words(gen, (c, 1 << 18)))
-        compare("cm31_ntt", lambda: ntt.ntt(big[0], big[1], 18),
-                lambda: ntt.ntt_plain(big[0], big[1], 18, False), 5, results,
-                plain_iters=1, n_bytes=8 * 4 * c * (1 << 18),
-                n_ops=ntt_ops(c, 18),
-                key=None if c == 596 else "cm31_ntt [493, 2^18]")
-        del big
+        x = (words(gen, (c, big)), words(gen, (c, big)))
+        row("cm31_ntt" if c == 596 else "cm31_ntt [493, 2^18]",
+            lambda: ntt.ntt(x[0], x[1], 18),
+            lambda: ntt.ntt_plain(x[0], x[1], 18, False), 8 * 4 * c * big,
+            ntt_ops(ins, c, 18))
+        del x
         torch.cuda.empty_cache()
+
+    # The streaming prover's block of 64 columns on one coset (intt, then
+    # coset_ntt into rows of a buffer), at 2^16 and 2^20.
+    for log_n in (16, 20):
+        n = 1 << log_n
+        vals = words(gen, (64, n))
+        out = (torch.empty_like(vals), torch.empty_like(vals))
+        row(f"block intt + coset_ntt [64, 2^{log_n}]",
+            lambda: _eval_block(vals, None, log_n, shift, out=out),
+            lambda: ntt.ntt_plain(*intt_plain(vals, log_n), log_n, False,
+                                  pre=shift),
+            8 * 3 * 64 * n,
+            ntt_ops(ins, 64, log_n) + ntt_ops(ins, 64, log_n, products=n),
+            iters=3 if log_n == 20 else 5)
+        del vals, out
+        torch.cuda.empty_cache()
+    # The quotient's column (prover.py: coset_intt of [2^18], batch 1, so
+    # the plan narrows its tiles) and one of its chunks (coset_ntt of a
+    # 2^16-word slice into 2^18).
+    q = (words(gen, (1 << 18,)), words(gen, (1 << 18,)))
+    row("coset_intt [1, 2^18]",
+        lambda: ntt.coset_intt(q[0], q[1], 18, shift=shift),
+        lambda: ntt.ntt_plain(q[0], q[1], 18, True,
+                              post=ntt.cm31_inv_scalar(shift),
+                              scale=m31_inv(1 << 18)),
+        8 * 4 * (1 << 18), ntt_ops(ins, 1, 18, products=1 << 18))
+    chunk = (q[0][1 << 16:2 << 16], q[1][1 << 16:2 << 16])
+    row("coset_ntt [1, 2^16 slice] -> 2^18",
+        lambda: ntt.coset_ntt(chunk[0], chunk[1], 18, shift=shift),
+        lambda: ntt.ntt_plain(chunk[0], chunk[1], 18, False, pre=shift),
+        8 * 2 * ((1 << 16) + (1 << 18)),
+        ntt_ops(ins, 1, 18, first=2, products=1 << 16))
+    del q, chunk
+    # The reference benchmark's NTT: one CM31 column of 2^24, forward.
+    col = (words(gen, (1, 1 << 24)), words(gen, (1, 1 << 24)))
+    row("cm31_ntt [1, 2^24]", lambda: ntt.ntt(col[0], col[1], 24),
+        lambda: ntt.ntt_plain(col[0], col[1], 24, False),
+        8 * 4 * (1 << 24), ntt_ops(ins, 1, 24))
+    del col
+    # Rows of a wider matrix: row stride 2^17 words for rows of 2^16.
+    wide = words(gen, (64, 1 << 17))
+    rows_ = (wide[:, :1 << 16], wide[:, 1 << 16:])
+    row("cm31_ntt [64, 2^16], row stride 2^17",
+        lambda: ntt.ntt(rows_[0], rows_[1], 16),
+        lambda: ntt.ntt_plain(rows_[0].contiguous(), rows_[1].contiguous(),
+                              16, False), 8 * 4 * 64 * (1 << 16),
+        ntt_ops(ins, 64, 16))
+    del wide, rows_
+    torch.cuda.empty_cache()
 
     for log_n, batch in ((1, 1), (2, 3), (5, 1), (5, 3), (10, 3), (12, 1),
                          (13, 1), (13, 3), (16, 3), (19, 1)):
@@ -434,6 +543,9 @@ def phase_ntt(results, gen) -> None:
         equal(f"cm31_ntt 2^{log_n} x {batch} short real input, pre, scale",
               ntt.cm31_ntt(short, None, log_n, False, pre=shift, scale=3),
               ntt.ntt_plain(short, None, log_n, False, pre=shift, scale=3))
+        equal(f"lde 2^{log_n} x {batch} -> 2^{log_n + 2}",
+              ntt.lde(re, None, log_n, 2, shift=shift),
+              lde_plain(re, log_n, 2))
     re, im = words(gen, (2, 1 << 18)), words(gen, (2, 1 << 18))
     for name in ("coset_ntt", "coset_intt"):
         plain = {"coset_ntt": lambda: ntt.ntt_plain(re, im, 18, False,
@@ -770,6 +882,20 @@ def lanes_program():
     return Program.from_instructions(ins + loop + tail)
 
 
+def empty_crypto_program():
+    """SHA-256 of zero bytes from an input pointer outside both memory
+    windows (2^21), its first digest word written out: the reference reads
+    no input byte and halts 1 with 0xe3b0c442."""
+    from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+    return Program.from_instructions([
+        I(Op.ADDI, rd=11, rs1=0, imm=1), I(Op.SLLI, rd=11, rs1=11, imm=21),
+        I(Op.ADDI, rd=10, rs1=0, imm=3), I(Op.ADDI, rd=12, rs1=0, imm=0),
+        I(Op.ADDI, rd=13, rs1=0, imm=0x4000), I(Op.ECALL),
+        I(Op.ADDI, rd=1, rs1=0, imm=0x4000), I(Op.LW, rd=11, rs1=1, imm=0),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL), I(Op.EBREAK)])
+
+
 def staggered_program():
     """Lanes that pause at different chunks: a busy loop of a
     tape-dependent length, then a tape-dependent number of rounds of
@@ -923,6 +1049,18 @@ def phase_interp(results) -> dict:
                                  "from the stored one")
     log("interp_chunk, interp_run: exact on golden e's program; matrix "
         "equal to the stored one")
+    # (e) a crypto syscall with no input bytes and its pointer outside both
+    # windows: K3 pauses, the host reads no input byte.
+    _, result, _ = interp_both("interp empty crypto input", TpuInterpreter(
+        empty_crypto_program(), InterpConfig(lanes=1, chunk=16),
+        device="cuda"), [[]])
+    if result["halted"].tolist() != [1] \
+            or result["outputs"] != [[3820012610]]:
+        raise AssertionError(f"SHA-256 of no bytes: halted "
+                             f"{result['halted'].tolist()}, outputs "
+                             f"{result['outputs']}")
+    log("interp_chunk, interp_run: exact on SHA-256 of no input bytes from "
+        "outside the windows (halt 1, output 3820012610)")
 
     # The main path's shape, timed: one lane with a trace, 1,024 cycles
     # (interp_run over a one-chunk segment), and the whole 2^16-cycle run

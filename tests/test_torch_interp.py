@@ -361,6 +361,35 @@ def test_cycle_limit_parity():
     assert port["halted"].tolist() == [HALT_CYCLE_LIMIT] * 2
 
 
+def test_crypto_syscall_with_no_input_bytes():
+    """SHA-256 of zero bytes from an input pointer outside both memory
+    windows (2^21): the reference reads no input byte and halts 1 with
+    0xe3b0c442, the first word of SHA-256 of the empty string; the port's
+    interpreter (whose host services K3's paused syscalls too) and its
+    oracle VM must give the same."""
+    from zkir_tpu_torch.runtime import VM, VMConfig
+
+    program = program_of([
+        I(Op.ADDI, rd=11, rs1=0, imm=1), I(Op.SLLI, rd=11, rs1=11, imm=21),
+        I(Op.ADDI, rd=10, rs1=0, imm=3), I(Op.ADDI, rd=12, rs1=0, imm=0),
+        I(Op.ADDI, rd=13, rs1=0, imm=0x4000), I(Op.ECALL),
+        I(Op.ADDI, rd=1, rs1=0, imm=0x4000), I(Op.LW, rd=11, rs1=1, imm=0),
+        I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL), I(Op.EBREAK)])
+    port = TpuInterpreter(program, InterpConfig(lanes=1, chunk=16),
+                          device="cpu").run([[]])
+    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                         RefConfig(lanes=1, chunk=16)).run([[]])
+    oracle = VM(program, [], VMConfig()).run()
+    assert ref["halted"].tolist() == [HALT_EBREAK]
+    assert ref["outputs"] == [[0xE3B0C442]]
+    for key in ("halted", "cycles"):
+        np.testing.assert_array_equal(port[key], ref[key], key)
+    assert port["outputs"] == ref["outputs"]
+    assert oracle.cycles == int(ref["cycles"][0])
+    assert oracle.outputs == ref["outputs"][0]
+    assert oracle.halt_reason.reason.value == "ebreak"
+
+
 def test_fibonacci_multi_lane_parity():
     program = assemble((ROOT / "examples" / "fibonacci.zkasm").read_text())
     tapes = [[5], [10], [15], [20]]

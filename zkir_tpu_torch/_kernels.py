@@ -46,9 +46,10 @@ _SIGNATURES = {
     "m31_binary": (_P, _P, _P, _P, _I),
     # a_re, a_im, b_re, b_im, out_re, out_im, host descriptor, op
     "cm31_binary": (_P, _P, _P, _P, _P, _P, _P, _I),
-    # in_re, in_im, in_row_stride, in_len, out_re, out_im, twiddles, pre,
-    # post, batch, log_n, scale
-    "cm31_ntt": (_P, _P, _N, _N, _P, _P, _P, _P, _P, _N, _I, _N),
+    # in_re, in_im, in_row_stride, in_len, out_re, out_im, out_row_stride,
+    # mid, pre, post, batch, log_n, scale, host plan (ops/ntt.py
+    # plan_words)
+    "cm31_ntt": (_P, _P, _N, _N, _P, _P, _N, _P, _P, _P, _N, _I, _N, _P),
     "p2_permute": (_P, _P, _N),
     "p2_sponge_rows": (_P, _P, _N, _N, _I),
     # states [n, 16] (in place), blocks [n, w], n, w, pad

@@ -1133,7 +1133,11 @@ class TpuInterpreter:
         for k, lane in enumerate(paused):
             num, in_ptr, in_len, out_ptr = (int(regs[k, r])
                                             for r in (10, 11, 12, 13))
-            data = bytes(mem[lane, span(lane, in_ptr, in_len)].cpu().numpy())
+            # No input byte is read when there is none: the reference
+            # checks each byte's address, so an empty input may point
+            # anywhere.
+            data = b"" if in_len == 0 else bytes(
+                mem[lane, span(lane, in_ptr, in_len)].cpu().numpy())
             calls.append((lane, num, data, span(lane, out_ptr, 32)))
         # The Poseidon2 digests of all paused lanes are one batch of device
         # permutations; the other hashes are host scalar code.  Either way

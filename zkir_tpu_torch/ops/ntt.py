@@ -18,17 +18,18 @@ their edges as options: an input shorter than n reads as zero beyond its
 length (the LDE's padding), ``im`` may be ``None`` (real input), ``pre``
 and ``post`` multiply input/output i by a CM31 scalar's i-th power (the
 coset shift), ``scale`` multiplies every output (1/n).  Tensors on a GPU
-take the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``): each public
-function is one call of it (``lde`` two), and no padded, zero or shifted
-copy of the array is made.  Tensors on the CPU take ``ntt_plain``, the
-torch network with the same signature.  ``cm31_mul``/``cm31_add``/
+take the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``) with the pass plan
+that ``ntt_plan`` chooses here: each public function is one call of it
+(``lde`` two), and no padded, zero or shifted copy of the array is made.
+Tensors on the CPU take ``ntt_plain``, the torch network with the same
+signature.  ``cm31_mul``/``cm31_add``/
 ``cm31_sub`` are one launch each of K1's CM31 entry point on a GPU.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -161,13 +162,10 @@ def _on_device(key, device):
         pair = (twr[::stride][:m], twi[::stride][:m])
     elif kind == "bitrev":
         return torch.from_numpy(_bitrev(args)).to(device)
-    elif kind == "twiddles_u32":         # w^0 .. w^(n/2 - 1)
-        log_n, inverse = args
-        twr, twi = _twiddle_table(log_n, inverse)
-        half = (1 << log_n) // 2
-        return _pairs_u32(twr[:half], twi[:half], device)
     elif kind == "shift_u32":
         return _pairs_u32(*_shift_powers(*args), device)
+    elif kind == "step_u32":             # a register step's factors
+        return _pairs_u32(*step_twiddles(*args), device)
     else:                                # "shift": powers of a coset shift
         pair = _shift_powers(*args)
     return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
@@ -253,6 +251,126 @@ def ntt_plain(re, im, log_n: int, inverse: bool, pre=None, post=None,
     return re, im
 
 
+# ============================================================================
+# The kernel's pass plan (csrc/ntt.cu), chosen on the host
+# ============================================================================
+
+TILE_LOG = 12         # points a tile: 2^12 uint32 pairs, 32 KB shared memory
+PASS_LOG = 8          # stages a pass where the batch fills the card (below)
+MAX_PASS_LOG = 9      # most stages a pass: three radix-8 register steps
+MAX_PASSES = 3        # most passes the kernel's plan takes
+SINGLE_PASS_LOG = 12  # sizes up to 2^12 take one pass, one tile a row
+RADIX_LOG = 3         # a register step: 8 points of a thread, 3 stages
+MIN_TILES = 128       # fewer tiles than about one an SM (132): narrower tiles
+MAX_STEPS = 4         # register steps a pass (the kernel's plan slots)
+FLAG_IN_PAIRS = 1     # the input is uint32 pairs, not int64 words
+FLAG_OUT_PAIRS = 2    # the output is uint32 pairs at ``out_re``
+
+
+class NttPass(NamedTuple):
+    """One pass of the kernel: stages ``lo .. lo + k - 1`` over tiles of
+    2^k points of 2^tau sub-transforms; the first ``skip`` stages only
+    replicate (the input is zero beyond n >> skip) and are not run; the
+    rest run as register steps of ``steps`` stages each."""
+
+    lo: int
+    k: int
+    tau: int
+    skip: int
+    steps: Tuple[int, ...]
+
+
+def _radix_steps(stages: int):
+    """Register steps for ``stages`` butterfly stages: radix-8 steps, the
+    remainder (one or two stages) first, where a first pass's twiddles
+    are still 1."""
+    rem = stages % RADIX_LOG
+    return ((rem,) if rem else ()) + (RADIX_LOG,) * (stages // RADIX_LOG)
+
+
+def ntt_plan(log_n: int, batch: int, in_len: int, tile_log: int = TILE_LOG,
+             pass_log: int = PASS_LOG, min_tiles: int = MIN_TILES):
+    """The passes of one ``cm31_ntt`` launch: n = 2^log_n <= 2^12 in one
+    pass of one row a tile, larger n in passes of near-equal stage counts
+    (the larger first) over tiles of 2^tile_log points.  A first pass's
+    tile takes 2^tau columns that lie 2^(log_n - tau) apart in the network
+    (2^tau neighbouring input words after the bit reversal); a later
+    pass's, 2^tau neighbouring positions, so the fewer stages a pass, the
+    longer the runs of neighbouring words it moves.  Where the batch fills
+    the card with full tiles (``min_tiles`` of them), passes of at most
+    ``pass_log`` stages (up to ``MAX_PASSES``: 2^18 as 6 + 6 + 6, runs of
+    2^6 positions, not 9 + 9 and runs of 2^3); else the fewest passes of
+    at most ``MAX_PASS_LOG``, over tiles narrowed until there are
+    ``min_tiles``.  Input shorter than n >> b lets the first pass skip b
+    stages (at most all but one)."""
+    if log_n <= SINGLE_PASS_LOG:
+        ks = [log_n]
+    else:
+        passes = -(-log_n // MAX_PASS_LOG)
+        if batch << (log_n - tile_log) >= min_tiles:
+            passes = max(passes, min(-(-log_n // pass_log), MAX_PASSES))
+        ks = [log_n // passes + (i < log_n % passes) for i in range(passes)]
+    skip = min(log_n - max(in_len - 1, 0).bit_length(), ks[0] - 1)
+    plan, lo = [], 0
+    for i, k in enumerate(ks):
+        if len(ks) == 1:
+            tau = 0
+        else:
+            top = log_n - k if i == 0 else lo
+            tau = max(min(tile_log - k, top), 1)
+            while tau > 1 and batch << (log_n - k - tau) < min_tiles:
+                tau -= 1
+        s = skip if i == 0 else 0
+        plan.append(NttPass(lo, k, tau, s, _radix_steps(k - s)))
+        lo += k
+    return tuple(plan)
+
+
+def step_twiddles(log_n: int, inverse: bool, g: int, rl: int):
+    """The pre-multiplication factors of a register step of 2^rl points
+    whose lowest stage is g: for each x0 < 2^g (the group's position bits
+    below g) the 2^rl - 1 factors W^(x0 rev(j) 2^(log_n - g - rl)), j = 1
+    .. 2^rl - 1, one record of neighbouring pairs (numpy uint32)."""
+    twr, twi = _twiddle_table(log_n, inverse)
+    rev = np.array([int(format(j, f"0{rl}b")[::-1], 2)
+                    for j in range(1, 1 << rl)], dtype=np.int64)
+    e = (np.arange(1 << g, dtype=np.int64)[:, None] * rev) << (
+        log_n - g - rl)
+    return twr[e].ravel(), twi[e].ravel()
+
+
+def dft_constants(log_n: int, inverse: bool):
+    """The 8-point DFT's constants: whether w^(n/4) is i (else -i), and
+    w^(n/8), w^(3n/8) (1 where n < 8)."""
+    twr, twi = _twiddle_table(log_n, inverse)
+    n = 1 << log_n
+    w4_is_i = log_n >= 2 and int(twi[n >> 2]) == 1
+    w8 = [(int(twr[m * n >> 3]), int(twi[m * n >> 3])) if log_n >= 3
+          else (1, 0) for m in (1, 3)]
+    return w4_is_i, w8[0], w8[1]
+
+
+def plan_words(plan, flags: int, log_n: int, inverse: bool, device=None):
+    """The plan as the kernel reads it: int64 [pass count, flags, w^(n/4)
+    is i, w^(n/8) and w^(3n/8) as re | im << 32, then per pass lo, k, tau,
+    skip, step count, MAX_STEPS step sizes and MAX_STEPS addresses of the
+    steps' factor tables (0 where a step has none: its factors are all 1,
+    or no device was given)."""
+    w4_is_i, w8, w8_3 = dft_constants(log_n, inverse)
+    words = [len(plan), flags, int(w4_is_i), w8[0] | w8[1] << 32,
+             w8_3[0] | w8_3[1] << 32]
+    for i, p in enumerate(plan):
+        steps = list(p.steps) + [0] * (MAX_STEPS - len(p.steps))
+        tables, g = [], p.lo + (p.skip if i == 0 else 0)
+        for rl in p.steps:
+            tables.append(0 if g == 0 or device is None else _on_device(
+                ("step_u32", (log_n, inverse, g, rl)), device).data_ptr())
+            g += rl
+        tables += [0] * (MAX_STEPS - len(tables))
+        words += [p.lo, p.k, p.tau, p.skip, len(p.steps), *steps, *tables]
+    return np.array(words, dtype=np.int64)
+
+
 def _rows(x, what: str):
     """The row stride, in words, of ``x`` seen as rows of unit inner
     stride.  The kernel reads [batch, in_len] through one row stride; any
@@ -281,16 +399,9 @@ def _out_pair(out, shape, device):
     return out
 
 
-def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
-              scale: int = 1, out=None):
-    """One call of the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``), into
-    ``out`` where given (it must not overlap the input: the kernel keeps
-    its passes' points in ``out``'s storage)."""
-    from .. import _kernels
-
-    n, in_len = 1 << log_n, re.shape[-1]
-    if log_n < 1:
-        raise ValueError("cm31_ntt on a GPU needs log_n >= 1")
+def _check_input(re, im, n: int):
+    """The row stride of ``re`` (and ``im``) as the kernel reads them."""
+    in_len = re.shape[-1]
     if re.dtype != torch.int64 or (im is not None and (
             im.dtype != torch.int64 or im.shape != re.shape
             or im.device != re.device)):
@@ -301,24 +412,85 @@ def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
     row_stride = _rows(re, "re")
     if im is not None and _rows(im, "im") != row_stride:
         raise ValueError("cm31_ntt: re and im differ in row stride")
+    return row_stride
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_for(log_n: int, batch: int, in_len: int, flags: int,
+              inverse: bool, device):
+    return plan_words(ntt_plan(log_n, batch, in_len), flags, log_n, inverse,
+                      device)
+
+
+def _launch(device, in_re, in_im, row_stride, in_len, out_re, out_im,
+            out_row_stride, mid, batch, log_n, inverse, pre=None, post=None,
+            scale=1, flags=0):
+    """One launch of ``cm31_ntt`` (``csrc/ntt.cu``) on data pointers, with
+    the host plan of ``ntt_plan``."""
+    from .. import _kernels
+
+    tables = [None if sh is None else
+              _on_device(("shift_u32", (tuple(sh), log_n)), device).data_ptr()
+              for sh in (pre, post)]
+    plan = _plan_for(log_n, batch, in_len, flags, inverse, device)
+    _kernels.launch("cm31_ntt", in_re, in_im, row_stride, in_len, out_re,
+                    out_im, out_row_stride, mid, *tables, batch, log_n,
+                    int(scale) % P, plan.ctypes.data)
+
+
+def _ntt_cuda(re, im, log_n: int, inverse: bool, pre=None, post=None,
+              scale: int = 1, out=None):
+    """One call of the CUDA kernel ``cm31_ntt`` (``csrc/ntt.cu``), into
+    ``out`` where given (it must not overlap the input: the kernel keeps
+    its passes' points in ``out``'s storage)."""
+    n = 1 << log_n
+    if log_n < 1:
+        raise ValueError("cm31_ntt on a GPU needs log_n >= 1")
+    row_stride = _check_input(re, im, n)
     device = re.device
     out_re, out_im = _out_pair(out, (*re.shape[:-1], n), device)
     if out is not None and any(
             o.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
             for o in out for x in (re, im) if x is not None):
         raise ValueError("cm31_ntt: out shares storage with the input")
+    if log_n > SINGLE_PASS_LOG and out_re.data_ptr() % 16:
+        raise ValueError("cm31_ntt: out's real part is not 16-byte aligned "
+                         "(the passes keep their points there)")
     batch = out_re.numel() // n
     if batch:
-        tw = _on_device(("twiddles_u32", (log_n, inverse)), device)
-        tables = [None if sh is None else
-                  _on_device(("shift_u32", (tuple(sh), log_n)), device)
-                  for sh in (pre, post)]
-        _kernels.launch(
-            "cm31_ntt", re.data_ptr(),
-            None if im is None else im.data_ptr(), row_stride, in_len,
-            out_re.data_ptr(), out_im.data_ptr(), tw.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in tables),
-            batch, log_n, int(scale) % P)
+        _launch(device, re.data_ptr(), None if im is None else im.data_ptr(),
+                row_stride, re.shape[-1], out_re.data_ptr(),
+                out_im.data_ptr(), n, out_re.data_ptr(), batch, log_n,
+                inverse, pre, post, scale)
+    return out_re, out_im
+
+
+def _lde_cuda(re, im, log_n: int, log_blowup: int, shift):
+    """``lde`` as two launches: the iNTT multiplies coefficient i by
+    shift^i as it stores it (``post``, once a coefficient) and leaves the
+    coefficients as uint32 pairs (FLAG_OUT_PAIRS) in the storage of the
+    output's imaginary part, row r at the start of its own output row; the
+    forward transform reads them there (FLAG_IN_PAIRS), its first pass
+    skipping the log_blowup stages that only replicate them."""
+    n, big = 1 << log_n, log_n + log_blowup
+    if log_n < 1:
+        raise ValueError("cm31_ntt on a GPU needs log_n >= 1")
+    row_stride = _check_input(re, im, n)
+    N = 1 << big
+    out_re = torch.empty((*re.shape[:-1], N), dtype=torch.int64,
+                         device=re.device)
+    out_im = torch.empty_like(out_re)
+    batch = out_re.numel() // N
+    if batch:
+        coef = out_im.data_ptr()
+        _launch(re.device, re.data_ptr(),
+                None if im is None else im.data_ptr(), row_stride,
+                re.shape[-1], coef, None, N, out_re.data_ptr(), batch, log_n,
+                True, post=_shift_or_none(shift), scale=s_inv(n),
+                flags=FLAG_OUT_PAIRS)
+        _launch(re.device, coef, None, N, n, out_re.data_ptr(),
+                out_im.data_ptr(), N, out_re.data_ptr(), batch, big, False,
+                flags=FLAG_IN_PAIRS)
     return out_re, out_im
 
 
@@ -362,7 +534,11 @@ def lde(re, im, log_n: int, log_blowup: int,
     evaluations on the coset ``shift * <w>`` of the size-2^(log_n +
     log_blowup) subgroup.  ``im`` may be ``None`` (real evaluations).
     The coefficients are not padded: the forward transform reads them as
-    zero beyond 2^log_n."""
+    zero beyond 2^log_n (on a GPU it skips the stages that only replicate
+    them, and the iNTT applies the shift's powers as it stores them:
+    ``_lde_cuda``)."""
+    if re.is_cuda:
+        return _lde_cuda(re, im, log_n, log_blowup, shift)
     coef_r, coef_i = intt(re, im, log_n)
     return cm31_ntt(coef_r, coef_i, log_n + log_blowup, inverse=False,
                     pre=_shift_or_none(shift))

@@ -17,7 +17,9 @@ The quotient's operation count (``chip_smoke.py``'s bound for the
 generated kernels) takes each helper of ``csrc/m31.cuh`` and
 ``csrc/quotient.cuh`` at its instructions in a probe built from those
 headers (``helper_instructions``): the helper applied in a dependent chain
-of 16 and of 8 calls, the difference over 8.
+of 16 and of 8 calls, the difference over 8.  The NTT's
+(``ntt_instructions``) takes ``csrc/ntt.cu``'s product and a butterfly's
+sum and difference the same way.
 
 For a kernel whose loop body branches on its data (the interpreter's
 cycle loop, one path per opcode):
@@ -144,21 +146,24 @@ def helper_source() -> str:
     return "\n".join(lines)
 
 
-def helper_instructions(nvcc: str, csrc, workdir) -> dict:
-    """Instructions of one call of each quotient helper in code built by
-    ``nvcc`` for sm_90a from the headers in ``csrc``: the SASS of the
+def chain_instructions(nvcc: str, csrc, workdir, stem: str, source: str,
+                       names) -> dict:
+    """Instructions of one call of each helper in ``names``: ``source``
+    defines kernels ``probe_<name>_16`` and ``probe_<name>_8`` that apply
+    it in chains of 16 and 8 calls; it is built by ``nvcc`` for sm_90a
+    with ``csrc`` on the include path, and each count is the SASS of the
     16-call chain less the 8-call chain's (NOPs aside), over 8."""
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
-    cu, cubin = work / "helpers.cu", work / "helpers.cubin"
-    cu.write_text(helper_source())
+    cu, cubin = work / f"{stem}.cu", work / f"{stem}.cubin"
+    cu.write_text(source)
     res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                           "-std=c++17", "-O3", "-cubin", "-I", str(csrc),
                           "-o", str(cubin), str(cu)], capture_output=True,
                          text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the helper probe:\n{res.stderr}")
-    sass = work / "helpers.sass"
+        raise RuntimeError(f"nvcc failed on the {stem} probe:\n{res.stderr}")
+    sass = work / f"{stem}.sass"
     sass.write_text(subprocess.run(
         [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
         check=True, capture_output=True, text=True).stdout)
@@ -167,7 +172,49 @@ def helper_instructions(nvcc: str, csrc, workdir) -> dict:
         return sum(op != "NOP" for _, op, _ in instructions(sass, kernel))
 
     return {name: (count(f"probe_{name}_16") - count(f"probe_{name}_8")) / 8
-            for name in _HELPER_CHAINS}
+            for name in names}
+
+
+def helper_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions of one call of each quotient helper in code built by
+    ``nvcc`` for sm_90a from the headers in ``csrc``."""
+    return chain_instructions(nvcc, csrc, workdir, "helpers",
+                              helper_source(), _HELPER_CHAINS)
+
+
+# The NTT's butterfly (csrc/ntt.cu): the product of the upper point by its
+# twiddle, and the sum and difference of both coordinates.
+_NTT_CHAINS = {
+    "cmul": "y = lz_cmul(y, w);",
+    "sum_difference": "{ const cm31 s = {lz_add(x.re, y.re), "
+                      "lz_add(x.im, y.im)}; y = {lz_sub(x.re, y.re), "
+                      "lz_sub(x.im, y.im)}; x = s; }",
+}
+
+
+def ntt_source() -> str:
+    lines = ['#include "ntt.cu"', ""]
+    for name, step in _NTT_CHAINS.items():
+        for reps in (8, 16):
+            lines += [
+                f'extern "C" __global__ void probe_{name}_{reps}(',
+                "    const uint32_t* in, uint32_t* o) {",
+                "    cm31 x = {in[threadIdx.x], in[threadIdx.x + 32]};",
+                "    cm31 y = {in[threadIdx.x + 64], in[threadIdx.x + 96]};",
+                "    const cm31 w = {in[128], in[129]};",
+                "#pragma unroll",
+                f"    for (int r = 0; r < {reps}; ++r) {step}",
+                "    o[threadIdx.x] = x.re ^ x.im ^ y.re ^ y.im;",
+                "}", ""]
+    return "\n".join(lines)
+
+
+def ntt_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions of the NTT's product (``cmul``) and of a butterfly's
+    sum and difference (``sum_difference``) in ``csrc/ntt.cu`` as built
+    for sm_90a."""
+    return chain_instructions(nvcc, csrc, workdir, "ntt_probe", ntt_source(),
+                              _NTT_CHAINS)
 
 
 def main():
