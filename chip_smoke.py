@@ -9,7 +9,8 @@ CUDA toolkit::
 Phases, in order; any failure raises and the script exits non-zero
 (``python3 chip_smoke.py --quotient`` runs only phase 2's quotient build
 and the quotient's comparisons on goldens C and E and the 2^16 main
-path):
+path; ``python3 chip_smoke.py --crypto`` only the kernels' build and the
+``crypto`` phase after phase 5):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
@@ -64,7 +65,15 @@ path):
    interpreter's cycles per second on the reference benchmark's loop
    program at 65,536 and 8,192 lanes, and both layouts (a thread or a
    warp per lane) from 1 to 65,536 lanes, and with a trace from 1 to
-   1,024 (the wrapper's pick must be the faster);
+   1,024 (the wrapper's pick must be the faster); then the ``crypto``
+   phase (``phase_crypto``, at most 90 s): the hash kernels
+   (``sha256_blocks``, ``keccak_absorb``, ``b3_chunks``, ``b3_compress``)
+   against their plain versions, exact and timed beside their bounds, and
+   against known answers; ``crypto_lanes_program`` on 65,536 lanes at the
+   reference benchmark's interpreter shape, every lane's outputs equal to
+   a host recomputation and 8 lanes to the oracle VM, each service round's
+   seconds and launches (one launch of each hash kernel a round at most,
+   BLAKE3's tree levels aside);
 6. prove the 2^16-row benchmark trace (493 columns, production
    ``FriConfig()``) without ``range_lookup`` once, and verify it;
 7. the main path at full width: ``exact_trace_program(16)`` interpreted
@@ -117,7 +126,8 @@ path):
 
 The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
-run of phase 7, for ``p2_permute`` the syscall run of phase 5, for
+run of phase 7, for ``p2_permute`` the syscall run of phase 5, for the
+hash kernels the crypto phase's 65,536-lane run, for
 ``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
 ``p2_compress_level``, which no path launches any more; beside them the
 launches of the other paths, the deferred one of phase 9 included, and
@@ -186,7 +196,20 @@ KERNELS = {
     # over csrc/quotient.cuh.
     "quotient_part": ("zkir_tpu_torch/prover/quotient_codegen.py",
                       "zkir_tpu/prover/constraints.py:2683"),
+    # The reference's jitted batch hashes (XLA, not Pallas).
+    "sha256_blocks": ("zkir_tpu_torch/csrc/crypto.cu",
+                      "zkir_tpu/ops/sha256.py:32"),
+    "keccak_absorb": ("zkir_tpu_torch/csrc/crypto.cu",
+                      "zkir_tpu/ops/keccak.py:30"),
+    "b3_chunks": ("zkir_tpu_torch/csrc/crypto.cu",
+                  "zkir_tpu/ops/blake3.py:107"),
+    "b3_compress": ("zkir_tpu_torch/csrc/crypto.cu",
+                    "zkir_tpu/ops/blake3.py:61"),
 }
+# The hash kernels serve the interpreter's crypto syscalls; no prove
+# launches them.
+CRYPTO_KERNELS = ("sha256_blocks", "keccak_absorb", "b3_chunks",
+                  "b3_compress")
 # The quotient's plans: a feature set (lookup, aux, memory, io, crypto,
 # program) at a log_blowup.  The one-shot prover evaluates the quotient on
 # the whole LDE domain (FriConfig()'s log_blowup 2, every golden's); the
@@ -199,11 +222,12 @@ QUOTIENT_PLANS = {
     "main path, one coset": ((True,) * 6, 0),
     "range_lookup, no program, one coset": ((True,) * 5 + (False,), 0)}
 # The kernels the interpret-and-prove path must launch; p2_permute belongs
-# to the interpreter's Poseidon2 syscalls, p2_sponge_absorb to the
-# streaming prover, and p2_compress_level (one tree level) to no path
-# since p2_merkle_tree builds each tree in one launch.
+# to the interpreter's Poseidon2 syscalls, the hash kernels to its other
+# crypto syscalls, p2_sponge_absorb to the streaming prover, and
+# p2_compress_level (one tree level) to no path since p2_merkle_tree builds
+# each tree in one launch.
 MAIN_PATH_KERNELS = [k for k in KERNELS if k not in (
-    "p2_permute", "p2_compress_level", "p2_sponge_absorb")]
+    "p2_permute", "p2_compress_level", "p2_sponge_absorb", *CRYPTO_KERNELS)]
 PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
 # The kernels a streaming prove must launch.
 STREAMING_KERNELS = PROVER_KERNELS + ["p2_sponge_absorb"]
@@ -931,6 +955,139 @@ def staggered_program():
     return Program.from_instructions(ins + loop + tail)
 
 
+# The crypto program's buffer: right after its code in the low window, room
+# for the longest input; the lengths each hash is called with (block
+# edges of SHA-256 and BLAKE3 at 55, 56, 64; of Keccak at 135, 136, 137; of
+# a BLAKE3 chunk at 1,023, 1,024, 1,025); the syscalls in the order a lane
+# calls them (from a tape-given start): SHA-256, Keccak-256, BLAKE3,
+# Poseidon2.
+CRYPTO_BUF = 0x1400
+CRYPTO_FILL_WORDS = 376
+CRYPTO_LENGTHS = (0, 55, 56, 64, 135, 136, 137, 1023, 1024, 1025, 3000)
+CRYPTO_KINDS = (3, 5, 6, 4)
+
+
+def crypto_lanes_program():
+    """Fill the buffer with 376 tape words (3,008 bytes), then four times:
+    READ a syscall number and a length, hash the buffer's first ``length``
+    bytes into its first 32 (so each input starts with the previous
+    digest), WRITE the digest image's first word; then EXIT 0."""
+    from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+    ins = [I(Op.ADDI, rd=15, rs1=0, imm=CRYPTO_BUF),
+           I(Op.ADDI, rd=9, rs1=0, imm=CRYPTO_FILL_WORDS)]
+    fill = [I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),    # READ -> r10
+            I(Op.SD, rs1=15, rs2=10, imm=0),
+            I(Op.ADDI, rd=15, rs1=15, imm=8),
+            I(Op.ADDI, rd=9, rs1=9, imm=-1)]
+    fill.append(I(Op.BNE, rs1=9, rs2=0, imm=-4 * len(fill)))
+    hashes = [I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),  # the syscall
+              I(Op.ADDI, rd=5, rs1=10, imm=0),
+              I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),  # the length
+              I(Op.ADDI, rd=12, rs1=10, imm=0),
+              I(Op.ADDI, rd=11, rs1=0, imm=CRYPTO_BUF),
+              I(Op.ADDI, rd=13, rs1=0, imm=CRYPTO_BUF),
+              I(Op.ADDI, rd=10, rs1=5, imm=0), I(Op.ECALL),  # the hash
+              I(Op.LW, rd=11, rs1=13, imm=0),
+              I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL),  # WRITE r11
+              I(Op.ADDI, rd=9, rs1=9, imm=-1)]
+    hashes.append(I(Op.BNE, rs1=9, rs2=0, imm=-4 * len(hashes)))
+    tail = [I(Op.ADDI, rd=11, rs1=0, imm=0),
+            I(Op.ADDI, rd=10, rs1=0, imm=0), I(Op.ECALL)]    # EXIT 0
+    program = Program.from_instructions(
+        ins + fill + [I(Op.ADDI, rd=9, rs1=0, imm=4)] + hashes + tail)
+    assert 0x1000 + 4 * len(program.code) <= CRYPTO_BUF
+    return program
+
+
+def crypto_tapes(lanes: int, seed: int):
+    """uint64 ``[lanes, 384]``: the fill words, then (syscall, length) four
+    times, the syscalls in ``CRYPTO_KINDS``' order from a seeded start."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fill = rng.integers(0, 1 << 64, size=(lanes, CRYPTO_FILL_WORDS),
+                        dtype=np.uint64)
+    start = rng.integers(0, 4, size=(lanes, 1))
+    kinds = np.asarray(CRYPTO_KINDS)[(start + np.arange(4)) % 4]
+    lengths = rng.choice(CRYPTO_LENGTHS, size=(lanes, 4))
+    calls = np.stack([kinds, lengths], 2).reshape(lanes, 8)
+    return np.concatenate([fill, calls.astype(np.uint64)], 1)
+
+
+def crypto_expected(tapes):
+    """The outputs ``crypto_lanes_program`` must write, recomputed on the
+    host from the tapes: uint64 ``[lanes, 4]``.  SHA-256 by ``hashlib``;
+    Keccak-256, BLAKE3 and Poseidon2 by the port's plain versions on the
+    CPU; each image as ``prover/trace.py::crypto_digest`` gives it."""
+    import hashlib
+
+    import numpy as np
+
+    from zkir_tpu_torch.ops import blake3, keccak
+    from zkir_tpu_torch.ops import poseidon2 as p2
+
+    lanes = tapes.shape[0]
+    buf = np.ascontiguousarray(tapes[:, :CRYPTO_FILL_WORDS]).view(
+        np.uint8).reshape(lanes, -1).copy()
+    calls = tapes[:, CRYPTO_FILL_WORDS:].astype(np.int64).reshape(lanes, 4, 2)
+    out = np.zeros((lanes, 4), dtype=np.uint64)
+    for step in range(4):
+        images = np.zeros((lanes, 32), dtype=np.uint8)
+        for kind in CRYPTO_KINDS:
+            rows = np.nonzero(calls[:, step, 0] == kind)[0]
+            messages = [buf[r, :calls[r, step, 1]].tobytes() for r in rows]
+            if kind == 3:               # big-endian words stored by write_u32
+                got = [b"".join(d[i:i + 4][::-1] for i in range(0, 32, 4))
+                       for d in (hashlib.sha256(m).digest()
+                                 for m in messages)]
+            elif kind == 4:
+                words = p2.sponge_hash_bytes_batch(messages, "cpu").numpy()
+                got = [row.astype("<u4").tobytes() for row in words]
+            elif kind == 5:
+                got = keccak.keccak256_many(messages, "cpu")
+            else:
+                got = blake3.blake3_many(messages, "cpu")
+            images[rows] = np.frombuffer(b"".join(got), dtype=np.uint8
+                                         ).reshape(-1, 32)
+        buf[:, :32] = images
+        out[:, step] = images[:, :4].copy().view("<u4")[:, 0]
+    return out
+
+
+@contextlib.contextmanager
+def service_rounds(rounds: list):
+    """Record each ``TpuInterpreter._service_crypto`` call into ``rounds``:
+    its paused lanes, its seconds (the device synchronised before and
+    after) and the launches of each kernel during it."""
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.interp import columnar
+
+    cls = columnar.TpuInterpreter
+    service = cls._service_crypto
+
+    def timed(self, state):
+        lanes = int((state.halted == columnar.PAUSE_CRYPTO).sum())
+        before = dict(_kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = service(self, state)
+        torch.cuda.synchronize()
+        rounds.append({"lanes": lanes, "s": time.perf_counter() - t0,
+                       "launches": {k: v - before.get(k, 0) for k, v in
+                                    _kernels.launches.items()
+                                    if v != before.get(k, 0)}})
+        return state
+
+    cls._service_crypto = timed
+    try:
+        yield rounds
+    finally:
+        cls._service_crypto = service
+
+
 def interp_floor() -> dict:
     """Instructions every cycle executes in each layout of the built
     interpreter kernel (``tools/sass_count.py`` floor of its cycle loop):
@@ -1235,6 +1392,260 @@ def phase_interp(results) -> dict:
     log(f"p2_grind: 16 bits, {trials} trials; the whole call "
         f"{results['p2_grind']['call_ms_host_clock']:.4f} ms by the host "
         f"clock")
+    return stats
+
+
+def device_ms(fn, iters: int) -> dict:
+    """Mean device milliseconds a call of ``fn()`` spends in each CUDA
+    kernel it launches (``torch.profiler``), and their sum under
+    ``"all"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {row.key: row.device_time_total / 1e3 / iters
+           for row in prof.key_averages() if row.device_time_total}
+    out["all"] = sum(out.values())
+    return out
+
+
+def crypto_instructions() -> dict:
+    """Instructions of one SHA-256 block, keccak-f[1600] and BLAKE3
+    compression in this build of ``csrc/crypto.cu`` (a SASS probe)."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.tools.sass_count import crypto_instructions as count
+
+    out = count(_kernels._nvcc(), _kernels.CSRC, _kernels.BUILD / "probe")
+    log(f"crypto.cu SASS: instructions a compression {out}")
+    return out
+
+
+def phase_crypto(results) -> dict:
+    """The batched hashes (``csrc/crypto.cu``): (a) each kernel against its
+    plain version, exact, at the syscall path's shapes (SHA-256 over
+    65,536 messages of 200 bytes and its witness over 65,536 blocks,
+    Keccak over 65,536 x 300 bytes, BLAKE3's chunks and a tree level of
+    65,536 x 1,025 bytes, and whole BLAKE3 digests of those and of 4,096
+    x 3,000 bytes), timed beside the bound (bytes, or this build's SASS
+    instructions a compression times the compressions), and the known
+    answers (hashlib, the host oracles, Keccak("abc")); (b)
+    ``crypto_lanes_program`` on 65,536 lanes at the reference
+    benchmark's shape through ``TpuInterpreter.run``: every lane's outputs
+    against the host recomputation, 8 lanes against the oracle VM, each
+    service round's seconds and launches (at most one launch of each hash
+    kernel a round, BLAKE3's tree levels aside)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.interp import HALT_EXIT, InterpConfig, TpuInterpreter
+    from zkir_tpu_torch.ops import blake3, keccak, sha256
+    from zkir_tpu_torch.runtime import VM, VMConfig
+    from zkir_tpu_torch.runtime.crypto import blake3_digest, keccak256_digest
+
+    t_phase = time.perf_counter()
+    # (b)'s tapes, and their outputs recomputed on the host while the card
+    # works through (a).
+    lanes = 65536
+    tapes = crypto_tapes(lanes, SEED)
+    host = ThreadPoolExecutor(1)
+    expected = host.submit(lambda: (time.perf_counter(),
+                                    crypto_expected(tapes),
+                                    time.perf_counter()))
+    stats = {"instructions": crypto_instructions()}
+    instr = stats["instructions"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n,), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def rows(n, width):
+        return np.arange(n, dtype=np.int64) * width, np.full(n, width)
+
+    # (a) SHA-256: 65,536 messages of 200 bytes (4 blocks each), and their
+    # digests against hashlib.
+    n = 65536
+    data, (offs, lens) = rand_bytes(n * 200), rows(n, 200)
+    compare("sha256_blocks", lambda: sha256.sha256_rows(data, offs, lens),
+            lambda: sha256.sha256_rows_plain(data, offs, lens)[0], 20,
+            results, plain_iters=1, n_bytes=n * (200 + 16 + 64),
+            n_ops=4 * n * instr["sha256_block"])
+    results["sha256_blocks"]["shape"] = "65,536 messages x 200 bytes"
+    alone = {"sha256_blocks": device_ms(
+        lambda: sha256.sha256_rows(data, offs, lens), 20)}
+    blob = data.cpu().numpy().tobytes()
+    got = sha256.digests_to_bytes(sha256.sha256_rows(data, offs, lens).cpu()
+                                  .numpy())
+    if got != [hashlib.sha256(blob[o:o + 200]).digest() for o in offs]:
+        raise AssertionError("sha256_blocks differs from hashlib")
+    # The witness: 65,536 single blocks from seeded states.
+    blocks = torch.randint(0, 1 << 32, (n, 16), generator=gen, device="cuda")
+    states = torch.randint(0, 1 << 32, (n, 8), generator=gen, device="cuda")
+    compare("sha256_blocks with witness [65536 x 1 block]",
+            lambda: sha256.sha256_compress_batch_with_witness(blocks, states),
+            lambda: sha256.sha256_rows_plain(
+                sha256._block_bytes(blocks), *rows(n, 64), states, False,
+                True),
+            20, results, plain_iters=1,
+            n_bytes=n * (64 + 16 + 64 + 64 + 64 * 64),
+            n_ops=n * instr["sha256_block"])
+    del data, blocks, states
+    # Keccak-256: 65,536 x 300 bytes (3 blocks each).
+    data, (offs, lens) = rand_bytes(n * 300), rows(n, 300)
+    compare("keccak_absorb", lambda: keccak.keccak_rows(data, offs, lens),
+            lambda: keccak.keccak_rows_plain(data, offs, lens), 20, results,
+            plain_iters=1, n_bytes=n * (300 + 16 + 200),
+            n_ops=3 * n * instr["keccak_f"])
+    results["keccak_absorb"]["shape"] = "65,536 messages x 300 bytes"
+    alone["keccak_absorb"] = device_ms(
+        lambda: keccak.keccak_rows(data, offs, lens), 20)
+    # BLAKE3: 65,536 x 1,025 bytes: 131,072 chunks (16 blocks and 1), one
+    # tree level of 65,536 roots.
+    data, (offs, lens) = rand_bytes(n * 1025), rows(n, 1025)
+    c_off = np.stack([offs, offs + 1024], 1).reshape(-1)
+    c_len = np.tile([1024, 1], n)
+    ctr = np.tile([0, 1], n)
+    flags = np.zeros(2 * n, dtype=np.int64)
+    compare("b3_chunks",
+            lambda: blake3.b3_chunks(data, c_off, c_len, ctr, flags),
+            lambda: blake3.b3_chunks_plain(data, c_off, c_len, ctr, flags),
+            20, results, plain_iters=1, n_bytes=n * 1025 + 2 * n * (32 + 64),
+            n_ops=17 * n * instr["b3_compress"])
+    results["b3_chunks"]["shape"] = "131,072 chunks of 65,536 x 1,025 bytes"
+    alone["b3_chunks"] = device_ms(
+        lambda: blake3.b3_chunks(data, c_off, c_len, ctr, flags), 20)
+    cvs = blake3.b3_chunks(data, c_off, c_len, ctr, flags).reshape(n, 16)
+    level = [torch.zeros(n, dtype=torch.int64, device="cuda"),
+             torch.zeros(n, dtype=torch.int64, device="cuda"),
+             torch.full((n,), 64, dtype=torch.int64, device="cuda"),
+             torch.full((n,), 12, dtype=torch.int64, device="cuda")]
+    compare("b3_compress",
+            lambda: blake3.b3_compress_batch(None, cvs, *level),
+            lambda: blake3.b3_compress_plain(None, cvs, *level), 20, results,
+            plain_iters=1, n_bytes=n * (128 + 32 + 64),
+            n_ops=n * instr["b3_compress"])
+    results["b3_compress"]["shape"] = "65,536 roots of 2 chunks"
+    alone["b3_compress"] = device_ms(
+        lambda: blake3.b3_compress_batch(None, cvs, *level), 20)
+    compare("blake3_rows [65536 x 1025]",
+            lambda: blake3.blake3_rows(data, offs, lens),
+            lambda: blake3.blake3_rows_plain(data, offs, lens), 20, results,
+            plain_iters=1, n_bytes=n * (1025 + 16 + 64),
+            n_ops=18 * n * instr["b3_compress"])
+    results["blake3_rows [65536 x 1025]"]["device_ms_all"] = device_ms(
+        lambda: blake3.blake3_rows(data, offs, lens), 20)["all"]
+    m = 4096
+    data, (offs, lens) = rand_bytes(m * 3000), rows(m, 3000)
+    compare("blake3_rows [4096 x 3000]",
+            lambda: blake3.blake3_rows(data, offs, lens),
+            lambda: blake3.blake3_rows_plain(data, offs, lens), 20, results,
+            plain_iters=1, n_bytes=m * (3000 + 16 + 64),
+            n_ops=(47 + 2) * m * instr["b3_compress"])
+    results["blake3_rows [4096 x 3000]"]["device_ms_all"] = device_ms(
+        lambda: blake3.blake3_rows(data, offs, lens), 20)["all"]
+    del data, cvs, level
+    # Each kernel alone on the device (torch.profiler), beside its wrapper.
+    for name, symbol in (("sha256_blocks", "sha256_kernel"),
+                         ("keccak_absorb", "keccak_kernel"),
+                         ("b3_chunks", "b3_chunks_kernel"),
+                         ("b3_compress", "b3_compress_kernel")):
+        r = results[name]
+        r["kernel_alone_ms"] = sum(v for k, v in alone[name].items()
+                                   if symbol in k)
+        r["device_ms_all"] = alone[name]["all"]
+        log(f"{name}: the kernel alone {r['kernel_alone_ms']:.4f} ms on the "
+            f"device ({100 * r['bound_ms'] / r['kernel_alone_ms']:.1f}% of "
+            f"its bound), every kernel of the call {r['device_ms_all']:.4f} "
+            f"ms, the wrapper {r['ms']:.4f} ms")
+    # Known answers: the reference tests' vectors against hashlib and the
+    # host oracles, Keccak("abc"), and single compressions against their
+    # plain versions from given states.
+    pat = [bytes(i % 251 for i in range(k))
+           for k in (0, 3, 55, 56, 63, 64, 65, 135, 136, 137, 200, 300, 1023,
+                     1024, 1025, 1280, 3000)]
+    if sha256.digests_to_bytes(sha256.sha256_many(pat, "cuda")) != [
+            hashlib.sha256(x).digest() for x in pat] \
+            or keccak.keccak256_many(pat, "cuda") != [
+                keccak256_digest(x) for x in pat] \
+            or blake3.blake3_many(pat, "cuda") != [
+                blake3_digest(x) for x in pat] \
+            or keccak.keccak256_many([b"abc"], "cuda")[0].hex() != (
+                "4e03657aea45a94fc7d47ba826c8d667"
+                "c0d1e6e33a64a036ec44f58fa12d6c45"):
+        raise AssertionError("a hash kernel misses a known answer")
+    st = torch.randint(-(1 << 62), 1 << 62, (64, 25), generator=gen,
+                       device="cuda") * 2 + 1
+    equal("keccak_absorb, keccak_f1600_batch", keccak.keccak_f1600_batch(st),
+          keccak.keccak_f_plain(st))
+    cv = torch.randint(0, 1 << 32, (64, 24), generator=gen, device="cuda")
+    small = [torch.randint(0, 1 << 32, (64,), generator=gen, device="cuda")
+             for _ in range(4)]
+    equal("b3_compress from given chaining values",
+          blake3.b3_compress_batch(cv[:, :8], cv[:, 8:], *small),
+          blake3.b3_compress_plain(cv[:, :8], cv[:, 8:], *small))
+    log("crypto known answers: hashlib, the host oracles and Keccak('abc') "
+        "on 17 lengths from 0 to 3,000 bytes")
+    torch.cuda.empty_cache()
+
+    # (b) The program on the reference benchmark's interpreter shape.
+    program = crypto_lanes_program()
+    interp = TpuInterpreter(program, InterpConfig(
+        lanes=lanes, chunk=512, low_bytes=1 << 13, stack_bytes=1 << 12,
+        max_inputs=tapes.shape[1]), device="cuda")
+    lists = tapes.tolist()
+    rounds = []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    with service_rounds(rounds):
+        result = interp.run(lists)
+    run_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    for i, r in enumerate(rounds):
+        log(f"crypto service round {i}: {r['lanes']} lanes in "
+            f"{r['s']:.4f} s, launches {r['launches']}")
+    new = ("sha256_blocks", "keccak_absorb", "b3_chunks", "b3_compress")
+    if any(not launches.get(k) for k in new):
+        raise AssertionError(f"the crypto run launched {launches}")
+    levels = int(np.ceil(np.log2(-(-max(CRYPTO_LENGTHS) // 1024))))
+    for r in rounds:
+        if any(r["launches"].get(k, 0) > 1 for k in new[:3]) \
+                or r["launches"].get("b3_compress", 0) > levels:
+            raise AssertionError(f"a service round launched {r}")
+    if set(result["halted"].tolist()) != {HALT_EXIT}:
+        raise AssertionError("the crypto lanes did not all exit")
+    t1, want, t2 = expected.result()
+    host.shutdown()
+    host_s = t2 - t1
+    got = np.asarray(result["outputs"], dtype=np.uint64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = np.nonzero((got != want).any(1))[0] if got.shape == want.shape \
+            else "shape"
+        raise AssertionError(f"crypto outputs differ from the host's: {bad}")
+    for lane in range(8):
+        vm = VM(program, lists[lane], VMConfig())
+        same_as_oracle(f"crypto lane {lane}", result, None, vm, vm.run(),
+                       lane)
+    stats.update(run_s=run_s, host_check_s=host_s, rounds=rounds,
+                 launches=launches, lanes=lanes)
+    phase_s = time.perf_counter() - t_phase
+    log(f"crypto: {lanes} lanes x 4 hashes in {run_s:.3f} s of "
+        f"TpuInterpreter.run ({sum(r['s'] for r in rounds):.4f} s in "
+        f"{len(rounds)} service rounds), outputs equal to the host's "
+        f"({host_s:.1f} s) and 8 lanes to the oracle VM; launches "
+        f"{launches}; phase {phase_s:.1f} s")
+    if phase_s > 90:
+        raise AssertionError(f"the crypto phase took {phase_s:.1f} s of its "
+                             "90 s")
     return stats
 
 
@@ -2493,6 +2904,14 @@ def main() -> int:
     from zkir_tpu_torch.prover import quotient_codegen
 
     results = {}
+    if sys.argv[1:] == ["--crypto"]:
+        stats = phase_crypto(results)
+        print(json.dumps({"crypto": stats, "kernel_cases": results,
+                          "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--quotient"]:
         print(json.dumps({**quotient_only(results), "card": card}))
         print(json.dumps({"ok": True, "device": {
@@ -2512,6 +2931,7 @@ def main() -> int:
     timed("kernels", phase_kernels, results)
     timed("goldens", phase_goldens, results, quotient_stats)
     interp_stats = timed("interpreter", phase_interp, results)
+    crypto_stats = timed("crypto", phase_crypto, results)
     full_stats, main_path = timed("2^16 proves", phase_full, results,
                                   quotient_stats)
     stream_stats = timed("streaming", phase_streaming, results,
@@ -2520,7 +2940,7 @@ def main() -> int:
                            interp_stats["floor"])
     del main_path
     stats = {**full_stats, **stream_stats, "interp": interp_stats,
-             "deferred": deferred_stats,
+             "crypto": crypto_stats, "deferred": deferred_stats,
              "cli": timed("cli", phase_cli), "quotient": quotient_stats,
              "phase_s": phase_s}
     if quotient_codegen.compiles != quotient_stats["compiled"]:
@@ -2530,8 +2950,9 @@ def main() -> int:
 
     # launches: the path that owns the kernel (interpret and prove with
     # range_lookup=True and the program bound; for p2_permute the
-    # interpreter's Poseidon2 syscalls; for p2_sponge_absorb the 2^16
-    # streaming prove); launches_plain_path: the range_lookup=False
+    # interpreter's Poseidon2 syscalls; for the hash kernels the crypto
+    # phase's 65,536-lane run; for p2_sponge_absorb the 2^16 streaming
+    # prove); launches_plain_path: the range_lookup=False
     # prove; launches_streaming_path: the 2^16 streaming prove;
     # launches_deferred_path: the deferred model's 2^16 trace interpreted
     # and proved with its program bound.
@@ -2545,7 +2966,9 @@ def main() -> int:
     main_path = dict(stats["prove_2e16_bound"]["launches"],
                      p2_permute=interp_stats["syscall_path_launches"]
                      ["p2_permute"],
-                     p2_sponge_absorb=streamed["p2_sponge_absorb"])
+                     p2_sponge_absorb=streamed["p2_sponge_absorb"],
+                     **{k: crypto_stats["launches"][k]
+                        for k in CRYPTO_KERNELS})
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": main_path[name],

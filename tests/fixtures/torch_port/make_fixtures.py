@@ -26,11 +26,16 @@ Every file here is made with the JAX package (``zkir_tpu``) on the CPU:
 - ``golden_e``: a program that stores ``b"abc"``, hashes it with the
   SHA-256 syscall and loads the first digest word (memory table, crypto
   tape), proved with ``SMALL_CONFIG, range_lookup=True, program=...``.
+- ``preprocessed_e.npz`` (``pre``): the preprocessed tables that golden
+  E's proof and its verification use, ``preprocess_aux(10, 2)`` and
+  ``preprocess_program`` of golden E's program at 2^10 rows and blowup 4:
+  for ``aux`` and ``program``, the table's columns, committed rows, tree
+  levels (``<table>_level_<k>``) and root.  Made from ``golden_e.program.zkir``.
 
 Run from the repository root (takes a few minutes); name the fixtures to
 make, or none for all of them::
 
-    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py [trace a b c d e]
+    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py [trace a b c d e pre]
 """
 
 from __future__ import annotations
@@ -160,12 +165,34 @@ def _golden_e() -> None:
     (HERE / "golden_e.program.zkir").write_bytes(program.to_bytes())
 
 
+def _preprocessed_e() -> None:
+    from zkir_tpu.prover import aux_table
+    from zkir_tpu.prover import prover
+    from zkir_tpu.prover.fri import FriConfig
+    from zkir_tpu.spec import Program
+
+    program = Program.from_bytes(
+        (HERE / "golden_e.program.zkir").read_bytes())
+    arrays = {}
+    for table, pre in (
+            ("aux", aux_table.preprocess_aux(10, 2)),
+            ("program", prover.preprocess_program(
+                list(program.code), 10, FriConfig(log_blowup=2)))):
+        arrays[f"{table}_cols"] = np.asarray(pre["cols"])
+        arrays[f"{table}_rows"] = np.asarray(pre["rows"])
+        arrays[f"{table}_root"] = np.asarray(pre["root"], dtype=np.uint32)
+        for k, level in enumerate(pre["levels"]):
+            arrays[f"{table}_level_{k}"] = np.asarray(level)
+    np.savez_compressed(HERE / "preprocessed_e.npz", **arrays)
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     makers = {"trace": _trace_2e16, "a": _golden_a, "b": _golden_b,
-              "c": _golden_c, "d": _golden_d, "e": _golden_e}
+              "c": _golden_c, "d": _golden_d, "e": _golden_e,
+              "pre": _preprocessed_e}
     for name in sys.argv[1:] or list(makers):
         makers[name]()
         print(f"made fixture {name}", flush=True)

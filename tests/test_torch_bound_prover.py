@@ -19,11 +19,13 @@ import pathlib
 import pytest
 import torch
 
+from zkir_tpu.prover import prover as ref_prover
 from zkir_tpu.prover import verify_trace as ref_verify_trace
 from zkir_tpu.prover.fri import FriConfig as RefFriConfig
 from zkir_tpu.spec import Program as RefProgram
-from zkir_tpu_torch.convert import (fixture_from_reference, proof_from_json,
-                                    proof_to_json)
+from zkir_tpu_torch.convert import (fixture_from_reference,
+                                    preprocessed_from_reference,
+                                    proof_from_json, proof_to_json)
 from zkir_tpu_torch.prover import prove_trace, verify_trace
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_port"
@@ -75,10 +77,28 @@ def test_port_verifier_accepts_bound_proof(fixtures, port_proofs, name):
                         device="cpu")
 
 
-def test_reference_verifier_accepts_bound_port_proof(fixtures, port_proofs):
+def test_reference_verifier_accepts_bound_port_proof(fixtures, port_proofs,
+                                                    monkeypatch):
     """Through the CLI's JSON, with the public program: the memory
     argument, crypto tape and program binding of E (4 queries; D's 32
-    would take the reference's scalar verifier most of a minute)."""
+    would take the reference's scalar verifier most of a minute).  The
+    reference verifier recomputes the roots of both preprocessed tables on
+    every call (some 40 s on the CPU); it reads them here from the
+    reference's stored tables (``make_fixtures.py pre``)."""
+    stored = FIXTURES / "preprocessed_e.npz"
+    code = list(fixtures["e"]["program"].code)
+
+    def aux(log_n, log_blowup):
+        assert (log_n, log_blowup) == (10, 2)
+        return preprocessed_from_reference(stored, "aux")
+
+    def program_table(code_words, log_n, fri_config):
+        assert (list(code_words), log_n, fri_config.log_blowup) == (
+            code, 10, 2)
+        return preprocessed_from_reference(stored, "program")
+
+    monkeypatch.setattr(ref_prover, "preprocess_aux", aux)
+    monkeypatch.setattr(ref_prover, "preprocess_program", program_table)
     proof = json.loads(proof_to_json(port_proofs("e")))
     proof["fri"]["config"] = RefFriConfig(**proof["fri"]["config"])
     program = RefProgram.from_bytes(fixtures["e"]["program"].to_bytes())

@@ -390,6 +390,42 @@ def test_crypto_syscall_with_no_input_bytes():
     assert oracle.halt_reason.reason.value == "ebreak"
 
 
+def test_four_hash_syscalls_batched_over_lanes():
+    """Four lanes fill a buffer from their tapes, then call SHA-256,
+    Keccak-256, BLAKE3 and Poseidon2 in turn over tape-given spans (block
+    edges, a chunk edge, empty, low and stack windows), each digest written
+    over the start of its input so that the next input begins with it, and
+    WRITE each digest's first word.  Each service round hashes all paused
+    lanes of a kind in one batch; result dicts (and traces) must equal the
+    reference's, whose host services one lane at a time."""
+    stack = (1 << 40) - 2048                # STACK_TOP + 1 - 2048
+    ins = [I(Op.ADDI, rd=15, rs1=0, imm=0x3000)]
+    for i in range(4):                      # four tape words into the buffer
+        ins += [I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),
+                I(Op.SD, rs1=15, rs2=10, imm=8 * i)]
+    for kind in (3, 5, 6, 4):
+        ins += [I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),   # length
+                I(Op.ADDI, rd=12, rs1=10, imm=0),
+                I(Op.ADDI, rd=10, rs1=0, imm=1), I(Op.ECALL),   # pointer
+                I(Op.ADDI, rd=11, rs1=10, imm=0),
+                I(Op.ADDI, rd=13, rs1=10, imm=0),
+                I(Op.ADDI, rd=10, rs1=0, imm=kind), I(Op.ECALL),
+                I(Op.LW, rd=11, rs1=13, imm=0),
+                I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL)]
+    ins.append(I(Op.EBREAK))
+    spans = [[(0, 0x3000), (55, 0x3000), (136, stack), (1025, 0x3000)],
+             [(56, stack), (64, 0x3000), (137, 0x3000), (0, 0x3008)],
+             [(3, 0x3000), (135, stack), (1024, stack), (200, 0x3004)],
+             [(64, 0x3000), (1, 0x3000), (2048, stack), (57, stack)]]
+    rng = np.random.default_rng(11)
+    tapes = [[int(v) for v in rng.integers(0, 1 << 63, size=4)]
+             + [x for span in lane for x in span] for lane in spans]
+    port, ref = run_both(program_of(ins), tapes, lanes=4)
+    assert_same_result(port, ref)
+    assert port["halted"].tolist() == [HALT_EBREAK] * 4
+    assert all(len(o) == 4 for o in port["outputs"])
+
+
 def test_fibonacci_multi_lane_parity():
     program = assemble((ROOT / "examples" / "fibonacci.zkasm").read_text())
     tapes = [[5], [10], [15], [20]]

@@ -286,7 +286,47 @@ def test_every_entry_point_has_its_c_function():
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert set(_kernels._SIGNATURES) <= defined
     assert set(_kernels.launches) == {*_kernels._SIGNATURES, "quotient_part"}
-    assert len(_kernels._SIGNATURES) == 10
+    assert len(_kernels._SIGNATURES) == 14
+
+
+def _crypto_calls():
+    """Each hash kernel's wrapper on CPU tensors, and its plain version
+    on the same inputs."""
+    from zkir_tpu_torch.ops import blake3, keccak, sha256
+
+    rng = np.random.default_rng(9)
+    data = torch.from_numpy(rng.integers(0, 256, 2000, dtype=np.uint8))
+    offs, lens = np.array([0, 7, 1500]), np.array([300, 0, 500])
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (3, 16)))
+    small = [torch.from_numpy(rng.integers(0, 1 << 32, 3)) for _ in range(4)]
+    return {
+        "sha256_blocks": (lambda: sha256.sha256_rows(data, offs, lens),
+                          lambda: sha256.sha256_rows_plain(
+                              data, offs, lens)[0]),
+        "keccak_absorb": (lambda: keccak.keccak_rows(data, offs, lens),
+                          lambda: keccak.keccak_rows_plain(data, offs, lens)),
+        "b3_chunks": (lambda: blake3.b3_chunks(data, offs, lens // 2, offs,
+                                               lens % 9),
+                      lambda: blake3.b3_chunks_plain(data, offs, lens // 2,
+                                                     offs, lens % 9)),
+        "b3_compress": (lambda: blake3.b3_compress_batch(None, words,
+                                                         *small),
+                        lambda: blake3.b3_compress_plain(None, words,
+                                                         *small)),
+    }
+
+
+@pytest.mark.parametrize("name", ["sha256_blocks", "keccak_absorb",
+                                  "b3_chunks", "b3_compress"])
+def test_crypto_entry_point_takes_its_plain_version_on_the_cpu(name):
+    """A hash kernel's wrapper, given CPU tensors, returns its plain
+    version's words and counts no launch; the count exists for the card."""
+    from zkir_tpu_torch import _kernels
+
+    wrapper, plain = _crypto_calls()[name]
+    before = _kernels.launches[name]
+    assert torch.equal(wrapper(), plain())
+    assert _kernels.launches[name] == before
 
 
 def test_sponge_hash_bytes_batch_equals_the_scalar_sponge():

@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from zkir_tpu.prover import aux_table as ref_aux
 from zkir_tpu.prover import prover as ref
 from zkir_tpu.spec import Program as RefProgram
-from zkir_tpu_torch.convert import fixture_from_reference
+from zkir_tpu_torch.convert import (fixture_from_reference,
+                                    preprocessed_from_reference)
 from zkir_tpu_torch.prover import prover as port
 from zkir_tpu_torch.prover.aux_table import aux_table_columns
 from zkir_tpu_torch.prover.fri import FriConfig
@@ -226,16 +226,21 @@ def test_device_compression_equals_host_compression():
 
 
 def test_preprocessed_table_roots_match_reference(witnesses):
-    """preprocess_aux(10, 2) and preprocess_program: roots, committed rows
-    and tree levels."""
+    """preprocess_aux(10, 2) and preprocess_program of golden E's program:
+    roots, committed rows and tree levels, against the reference's (made
+    by ``make_fixtures.py pre``; the reference takes some 40 s for them
+    on the CPU, the port a fraction of a second)."""
     config = FriConfig(log_blowup=2, log_final=3, num_queries=4,
                        grinding_bits=2, min_security=0)
     code = list(witnesses["port", "e"]["program"].code)
+    stored = FIXTURES / "preprocessed_e.npz"
+    assert code == list(RefProgram.from_bytes(
+        (FIXTURES / "golden_e.program.zkir").read_bytes()).code)
     for got, want in (
             (port.preprocess_aux(10, 2, device="cpu"),
-             ref_aux.preprocess_aux(10, 2)),
+             preprocessed_from_reference(stored, "aux")),
             (port.preprocess_program(code, 10, config, device="cpu"),
-             ref.preprocess_program(code, 10, ref.FriConfig(log_blowup=2)))):
+             preprocessed_from_reference(stored, "program"))):
         assert got["root"] == want["root"]
         np.testing.assert_array_equal(got["cols"], want["cols"])
         np.testing.assert_array_equal(got["rows"].numpy(),

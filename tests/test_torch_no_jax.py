@@ -1,6 +1,6 @@
 """The port runs where JAX is absent: in a fresh interpreter that cannot
 import ``jax`` or ``zkir_tpu``, import the port (prover, toolchain,
-interpreter and CLI), prove golden B, verify the stored program-bound
+interpreter, the batched hashes and CLI), prove golden B, verify the stored program-bound
 golden E (spec, convert, the preprocessed tables and the public demands),
 and drive ``asm``, ``run`` (the native and the oracle engine), ``prove``
 and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU."""
@@ -25,6 +25,8 @@ import zkir_tpu_torch.tools.fuzz_programs, zkir_tpu_torch.tools.interp_bench
 import zkir_tpu_torch.runtime.native_vm, zkir_tpu_torch.prover.streaming
 import zkir_tpu_torch.tools.stream_prove, zkir_tpu_torch.runtime.vm
 import zkir_tpu_torch.spec.analyzer, zkir_tpu_torch.spec.values
+import zkir_tpu_torch.ops.sha256, zkir_tpu_torch.ops.keccak
+import zkir_tpu_torch.ops.blake3, zkir_tpu_torch.ops.byte_rows
 from zkir_tpu_torch.convert import (fixture_from_reference, proof_from_json,
                                     proof_to_json)
 from zkir_tpu_torch.prover import FriConfig, prove_trace, verify_trace

@@ -62,6 +62,15 @@ _SIGNATURES = {
     "p2_grind": (_P, _I, _N, _N, _P),
     # host descriptor (csrc/interp.cu's enum)
     "interp_run": (_P,),
+    # data, offsets, lengths, states in (or null), states out, witness (or
+    # null), n, pad
+    "sha256_blocks": (_P, _P, _P, _P, _P, _P, _N, _I),
+    # data, offsets, lengths, state in (or null), state out, n, pad
+    "keccak_absorb": (_P, _P, _P, _P, _P, _N, _I),
+    # data, offsets, lengths, counters, last flags, chaining values, n
+    "b3_chunks": (_P, _P, _P, _P, _P, _P, _N),
+    # cv (or null), words, counter lo, counter hi, block_len, flags, out, n
+    "b3_compress": (_P, _P, _P, _P, _P, _P, _P, _N),
 }
 
 # One count per entry point; a module that builds kernels of its own

@@ -88,6 +88,21 @@ def fixture_from_reference(directory, name: str) -> Dict[str, Any]:
             "want": want, "config": FriConfig(**want["fri"]["config"])}
 
 
+def preprocessed_from_reference(path, table: str) -> Dict[str, Any]:
+    """A preprocessed table the JAX package made (``preprocess_aux`` or
+    ``preprocess_program``), stored as ``<table>_cols``, ``_rows``,
+    ``_level_<k>`` and ``_root`` arrays in the ``.npz`` at ``path``:
+    ``{"cols", "rows", "levels", "root"}`` as the reference returns them
+    (numpy arrays, the levels a list, the root a list of ints)."""
+    with np.load(path) as z:
+        levels = []
+        while f"{table}_level_{len(levels)}" in z.files:
+            levels.append(z[f"{table}_level_{len(levels)}"])
+        return {"cols": z[f"{table}_cols"], "rows": z[f"{table}_rows"],
+                "levels": levels,
+                "root": [int(x) for x in z[f"{table}_root"]]}
+
+
 def machine_state_from_reference(arrays: Dict[str, np.ndarray], *, device):
     """The port's ``interp.MachineState`` on ``device`` from the numpy
     fields of a reference ``MachineState`` (a dict by field name, or a

@@ -31,8 +31,10 @@ compares, the unsigned divide and MULH's 128-bit product from int64 in the
 limit, as in the reference's host loop.  ``TpuInterpreter.resume`` (one
 loop for both devices) allocates the trace in segments of chunks that
 double, launches one segment at a time, services the crypto syscalls of
-paused lanes (SHA-256, Poseidon2, Keccak, Blake3) on the host between
-launches, and copies the trace to the host once, at the end.
+paused lanes between launches (each hash kind one batch over the lanes
+that asked for it, on the state's device: ``ops/sha256.py``,
+``ops/keccak.py``, ``ops/blake3.py``, ``ops/poseidon2.py``), and copies
+the trace to the host once, at the end.
 
 ``InterpConfig(deferred=True)`` runs the deferred-carry model of the
 reference (its specification: ``runtime/deferred.py``, ``normalize.py``
@@ -1105,62 +1107,84 @@ class TpuInterpreter:
                              max(1, int(at.max())) * cfg.chunk)
 
     def _service_crypto(self, state: MachineState) -> MachineState:
-        """Host-side servicing of paused crypto syscalls (one per lane):
-        only the input and output byte ranges of the paused lanes cross
-        to the host and back."""
-        from ..ops.poseidon2 import sponge_hash_bytes_batch
-        from ..prover.trace import crypto_digest
+        """Service the paused crypto syscalls of all lanes at once, in
+        place, and return ``state``.  Only the paused lanes' argument
+        registers cross to the host (one copy), where their spans are
+        checked against the windows; then each hash kind (SHA-256,
+        Poseidon2, Keccak-256, BLAKE3) is one batch over the lanes that
+        asked for it, reading the input bytes where they lie in the memory
+        images, and one indexed write stores every lane's 32-byte image.
+        Registers, bounds, ``pc``, ``cycles`` and ``halted`` are indexed
+        writes over all paused lanes.  The images are those of the
+        reference's syscalls (``prover/trace.py::crypto_digest``)."""
+        from ..ops import blake3, keccak, poseidon2, sha256
 
         cfg = self.config
-        halted = state.halted.cpu().numpy().copy()
-        paused = np.nonzero(halted == PAUSE_CRYPTO)[0]
-        regs = _u64(state.regs[paused])
-        stack_lo = STACK_TOP - cfg.stack_bytes + 1
-        mem, bounds = state.mem.clone(), state.bound_bits.clone()
-        new_regs, pc, cycles = (state.regs.clone(), state.pc.clone(),
-                                state.cycles.clone())
+        dev = state.mem.device
+        paused = torch.nonzero(state.halted == PAUSE_CRYPTO).flatten()
+        args = torch.cat([paused[:, None], state.regs[paused, 10:14]],
+                         1).cpu().numpy()
+        lanes = args[:, 0]
+        num, in_ptr, in_len, out_ptr = args[:, 1:].view(np.uint64).T
+        width = state.mem.shape[1]
+        low = np.uint64(cfg.low_bytes)
+        stack_lo = np.uint64(STACK_TOP - cfg.stack_bytes + 1)
+        top = np.uint64(STACK_TOP + 1)
 
-        def span(lane, addr: int, n: int):
-            """The image offsets of [addr, addr + n), inside one window."""
-            for lo, hi, base in ((0, cfg.low_bytes, 0),
-                                 (stack_lo, STACK_TOP + 1, cfg.low_bytes)):
-                if lo <= addr and addr + n <= hi:
-                    return slice(base + addr - lo, base + addr - lo + n)
-            raise ValueError(f"crypto access outside window: {addr:#x} "
-                             f"(+{n}) in lane {lane}")
+        def offsets(addr, n):
+            """(inside a window, offset in the lane's image) of each span
+            [addr, addr + n); unsigned arithmetic that cannot wrap."""
+            in_low = (n <= low) & (addr <= low - np.minimum(n, low))
+            in_stack = (addr >= stack_lo) & (addr <= top) & (
+                n <= top - np.minimum(addr, top))
+            off = np.where(in_low, addr, low + (addr - stack_lo))
+            return in_low | in_stack, np.where(
+                in_low | in_stack, off, 0).astype(np.int64)
 
-        calls = []
-        for k, lane in enumerate(paused):
-            num, in_ptr, in_len, out_ptr = (int(regs[k, r])
-                                            for r in (10, 11, 12, 13))
-            # No input byte is read when there is none: the reference
-            # checks each byte's address, so an empty input may point
-            # anywhere.
-            data = b"" if in_len == 0 else bytes(
-                mem[lane, span(lane, in_ptr, in_len)].cpu().numpy())
-            calls.append((lane, num, data, span(lane, out_ptr, 32)))
-        # The Poseidon2 digests of all paused lanes are one batch of device
-        # permutations; the other hashes are host scalar code.  Either way
-        # the 32 bytes are the image the syscall leaves in memory.
-        p2 = [c for c in calls if c[1] == 4]
-        images = {}
-        if p2:
-            words = sponge_hash_bytes_batch([c[2] for c in p2], mem.device)
-            for c, row in zip(p2, words.cpu().numpy().astype("<u4")):
-                images[c[0]] = row.tobytes()
-        for lane, num, data, out in calls:
-            image = images.get(lane) or crypto_digest(num, data)
-            mem[lane, out] = torch.frombuffer(
-                bytearray(image), dtype=torch.uint8).to(mem.device)
-            new_regs[lane, 10] = 0
-            if num == 3:                # SHA-256's output bound goes to r14
-                bounds[lane, 14] = 32
-            halted[lane] = HALT_NONE
-        pc[paused] += 4
-        cycles[paused] += 1
-        return state._replace(
-            halted=torch.from_numpy(halted).to(state.halted.device),
-            regs=new_regs, mem=mem, pc=pc, cycles=cycles, bound_bits=bounds)
+        # No input byte is read when there is none: the reference checks
+        # each byte's address, so an empty input may point anywhere.
+        in_ok, in_off = offsets(in_ptr, in_len)
+        in_ok |= in_len == 0
+        out_ok, out_off = offsets(out_ptr, np.full_like(out_ptr, 32))
+        bad = np.nonzero(~(in_ok & out_ok))[0]
+        if bad.size:
+            k = bad[0]
+            addr, n = ((in_ptr[k], in_len[k]) if not in_ok[k]
+                       else (out_ptr[k], 32))
+            raise ValueError(f"crypto access outside window: {int(addr):#x} "
+                             f"(+{int(n)}) in lane {lanes[k]}")
+        if not np.all((num >= 3) & (num <= 6)):
+            wrong = num[(num < 3) | (num > 6)][0]
+            raise ValueError(f"not a crypto syscall number: {int(wrong)}")
+
+        # Each kind's digest as eight 32-bit words whose little-endian bytes
+        # are the image: SHA-256's big-endian words stored by write_u32
+        # (each 4-byte group of the digest reversed), Poseidon2's field
+        # words, the Keccak and BLAKE3 digest bytes.
+        data = state.mem.view(-1)
+        in_off = np.where(in_len > 0, lanes * width + in_off, 0)
+        words = torch.empty((len(lanes), 8), dtype=torch.int64, device=dev)
+        for kind, fn in ((3, sha256.sha256_rows),
+                         (4, poseidon2.sponge_hash_rows),
+                         (5, keccak.keccak256_words),
+                         (6, blake3.blake3_rows)):
+            rows = np.nonzero(num == kind)[0]
+            if rows.size:
+                words[torch.from_numpy(rows).to(dev)] = fn(
+                    data, in_off[rows], in_len[rows].astype(np.int64))
+        image = (words[:, :, None] >> torch.arange(0, 32, 8, device=dev)) \
+            & 0xFF
+        at = torch.from_numpy(lanes * width + out_off).to(dev)
+        data[at[:, None] + torch.arange(32, device=dev)] = image.reshape(
+            -1, 32).to(torch.uint8)
+
+        state.regs[paused, 10] = 0
+        sha = torch.from_numpy(lanes[num == 3]).to(dev)
+        state.bound_bits[sha, 14] = 32      # SHA-256's output bound: r14
+        state.pc[paused] += 4
+        state.cycles[paused] += 1
+        state.halted[paused] = HALT_NONE
+        return state
 
     def _collect(self, state: MachineState,
                  segments: List[Dict[str, torch.Tensor]],

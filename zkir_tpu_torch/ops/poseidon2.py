@@ -203,30 +203,43 @@ def poseidon2_permute_batch(states):
 def sponge_hash_bytes_batch(messages, device):
     """Sponge digests (int64 ``[n, 8]`` on ``device``) of ``n`` byte
     strings of any lengths, as ``poseidon2_ref.poseidon2_sponge_hash_bytes``
-    gives them one by one: 4-byte little-endian words mod p, 1||0* padding,
-    rate-8 blocks.  Block position j is absorbed and permuted in one batch
-    over the messages that have more than j blocks."""
-    from .poseidon2_ref import bytes_to_field_elements
+    gives them one by one (``sponge_hash_rows``)."""
+    from . import byte_rows
 
-    padded = []
-    for message in messages:
-        elements = bytes_to_field_elements(message) + [1]
-        padded.append(elements + [0] * (-len(elements) % RATE))
-    n_blocks = np.array([len(e) // RATE for e in padded], dtype=np.int64)
-    blocks = np.zeros((len(padded), int(n_blocks.max(initial=0)) * RATE),
-                      dtype=np.int64)
-    for k, elements in enumerate(padded):
-        blocks[k, :len(elements)] = elements
-    blocks = torch.from_numpy(blocks).to(device).reshape(len(padded), -1,
-                                                         RATE)
-    state = torch.zeros((len(padded), WIDTH), dtype=torch.int64,
-                        device=device)
+    return sponge_hash_rows(*byte_rows.pack(messages, device))
+
+
+def sponge_hash_rows(data, offsets, lengths):
+    """Sponge digests (int64 ``[k, 8]``) of rows of bytes (``byte_rows``):
+    4-byte little-endian words mod p (a short last word zero-extended),
+    1||0* padding, rate-8 blocks.  The words are made on ``data``'s device;
+    block position j is absorbed and permuted in one batch over the rows
+    that have more than j blocks, which the rows sorted by their count of
+    blocks make a prefix (on a GPU a ``p2_permute`` launch a position)."""
+    from . import byte_rows
+
+    offsets, lengths = byte_rows.check(data, offsets, lengths)
+    k, dev = len(lengths), data.device
+    if not k:
+        return torch.empty((0, RATE), dtype=torch.int64, device=dev)
+    n_words = -(-lengths // 4)
+    n_blocks = n_words // RATE + 1              # the 1 always fits
+    order = np.argsort(-n_blocks, kind="stable")
+    width = int(n_blocks.max(initial=0)) * RATE
+    blocks = byte_rows.words(byte_rows.gather(
+        data, offsets[order], lengths[order], 4 * width)) % P
+    blocks[torch.arange(k, device=dev),
+           torch.from_numpy(n_words[order]).to(dev)] = 1
+    blocks = blocks.reshape(k, -1, RATE)
+    state = torch.zeros((k, WIDTH), dtype=torch.int64, device=dev)
     for j in range(blocks.shape[1]):
-        live = torch.from_numpy(np.nonzero(n_blocks > j)[0]).to(device)
-        sub = state[live]
-        sub[:, :RATE] = add_plain(sub[:, :RATE], blocks[live, j])
-        state[live] = poseidon2_permute_batch(sub)
-    return state[:, :RATE]
+        live = int(np.count_nonzero(n_blocks > j))
+        state[:live, :RATE] = add_plain(state[:live, :RATE],
+                                        blocks[:live, j])
+        state[:live] = poseidon2_permute_batch(state[:live])
+    out = torch.empty((k, RATE), dtype=torch.int64, device=dev)
+    out[torch.from_numpy(order).to(dev)] = state[:, :RATE]
+    return out
 
 
 def _sponge_rows(matrix, pad: bool):

@@ -13,6 +13,8 @@ branches), in address order.  Prints the static instruction count, each
 loop's body, and the dynamic count = straight-line code + body x trips,
 split by opcode class.  Loops must not nest (the permutation's do not).
 
+The hash kernels' operation counts (``crypto_instructions``) take one
+compression of each as the SASS of a chain of two calls less that of one.
 The quotient's operation count (``chip_smoke.py``'s bound for the
 generated kernels) takes each helper of ``csrc/m31.cuh`` and
 ``csrc/quotient.cuh`` at its instructions in a probe built from those
@@ -147,12 +149,13 @@ def helper_source() -> str:
 
 
 def chain_instructions(nvcc: str, csrc, workdir, stem: str, source: str,
-                       names) -> dict:
+                       names, reps=(8, 16)) -> dict:
     """Instructions of one call of each helper in ``names``: ``source``
-    defines kernels ``probe_<name>_16`` and ``probe_<name>_8`` that apply
-    it in chains of 16 and 8 calls; it is built by ``nvcc`` for sm_90a
-    with ``csrc`` on the include path, and each count is the SASS of the
-    16-call chain less the 8-call chain's (NOPs aside), over 8."""
+    defines kernels ``probe_<name>_<R>`` for both R in ``reps`` that apply
+    it in chains of R calls; it is built by ``nvcc`` for sm_90a with
+    ``csrc`` on the include path, and each count is the SASS of the longer
+    chain less the shorter one's (NOPs aside), over the difference in
+    calls."""
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
     cu, cubin = work / f"{stem}.cu", work / f"{stem}.cubin"
@@ -171,8 +174,9 @@ def chain_instructions(nvcc: str, csrc, workdir, stem: str, source: str,
     def count(kernel):
         return sum(op != "NOP" for _, op, _ in instructions(sass, kernel))
 
-    return {name: (count(f"probe_{name}_16") - count(f"probe_{name}_8")) / 8
-            for name in names}
+    lo, hi = reps
+    return {name: (count(f"probe_{name}_{hi}") - count(f"probe_{name}_{lo}"))
+            / (hi - lo) for name in names}
 
 
 def helper_instructions(nvcc: str, csrc, workdir) -> dict:
@@ -215,6 +219,54 @@ def ntt_instructions(nvcc: str, csrc, workdir) -> dict:
     for sm_90a."""
     return chain_instructions(nvcc, csrc, workdir, "ntt_probe", ntt_source(),
                               _NTT_CHAINS)
+
+
+# csrc/crypto.cu's compression functions, each on a state in registers
+# that the previous call left (SHA-256's schedule overwrites its block, so
+# no call repeats another's work).
+_CRYPTO_CHAINS = {
+    "sha256_block": ("uint32_t h[8], w[16];",
+                     "for (int k = 0; k < 8; ++k) h[k] = in[k * 32 + t];"
+                     " for (int k = 0; k < 16; ++k) w[k] = in[256 + k * 32 + t];",
+                     "sha256_compress(h, w, nullptr);",
+                     "h[0] ^ h[3] ^ h[7] ^ w[5]"),
+    "keccak_f": ("uint64_t s[25];",
+                 "for (int k = 0; k < 25; ++k) s[k] = in[k * 32 + t]"
+                 " | ((uint64_t)in[800 + k * 32 + t] << 32);",
+                 "keccak_f(s);",
+                 "(uint32_t)(s[0] ^ s[7] ^ s[24] ^ (s[13] >> 32))"),
+    "b3_compress": ("uint32_t cv[8], m[16];",
+                    "for (int k = 0; k < 8; ++k) cv[k] = in[k * 32 + t];"
+                    " for (int k = 0; k < 16; ++k) m[k] = in[256 + k * 32 + t];",
+                    "b3_compress_words(cv, m, ((uint64_t)m[3] << 32) | m[2],"
+                    " 64u, 1u);",
+                    "cv[0] ^ cv[5] ^ m[9]"),
+}
+
+
+def crypto_source() -> str:
+    lines = ['#include "crypto.cu"', ""]
+    for name, (decl, load, step, result) in _CRYPTO_CHAINS.items():
+        for reps in (1, 2):
+            lines += [
+                f'extern "C" __global__ void probe_{name}_{reps}(',
+                "    const uint32_t* in, uint32_t* o) {",
+                "    const int t = threadIdx.x;",
+                f"    {decl}", f"    {load}",
+                "#pragma unroll",
+                f"    for (int r = 0; r < {reps}; ++r) {{ {step} }}",
+                f"    o[t] = {result};", "}", ""]
+    return "\n".join(lines)
+
+
+def crypto_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions one thread executes for one SHA-256 block compression
+    (``sha256_block``), one keccak-f[1600] (``keccak_f``) and one BLAKE3
+    compression (``b3_compress``) in ``csrc/crypto.cu`` as built for
+    sm_90a: the SASS of a chain of two calls less that of one (each is
+    straight-line code)."""
+    return chain_instructions(nvcc, csrc, workdir, "crypto_probe",
+                              crypto_source(), _CRYPTO_CHAINS, reps=(1, 2))
 
 
 def main():
