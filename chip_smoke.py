@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero
 (``python3 chip_smoke.py --quotient`` runs only phase 2's quotient build
 and the quotient's comparisons on goldens C and E and the 2^16 main
 path; ``python3 chip_smoke.py --crypto`` only the kernels' build and the
-``crypto`` phase after phase 5):
+``crypto`` phase after phase 5; ``python3 chip_smoke.py --mesh`` only the
+kernels' build and the ``mesh`` phase after it):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
@@ -73,7 +74,15 @@ path; ``python3 chip_smoke.py --crypto`` only the kernels' build and the
    reference benchmark's interpreter shape, every lane's outputs equal to
    a host recomputation and 8 lanes to the oracle VM, each service round's
    seconds and launches (one launch of each hash kernel a round at most,
-   BLAKE3's tree levels aside);
+   BLAKE3's tree levels aside); then the ``mesh`` phase (``phase_mesh``,
+   at most 90 s): ``zkir_tpu_torch.parallel``'s distributed entry points
+   on a world of one NCCL rank at full width (a 2^24 NTT, the main
+   path's LDE and committed rows, the reference benchmark's interpreter
+   shape in ``prove_step_sharded``), word for word against the
+   single-device kernels, launches counted, timed beside them and the
+   bound, with each kernel's device time by ``torch.profiler`` for the
+   NTT and the step; then 4 gloo ranks that share ``cuda:0`` at smaller
+   shapes, exact;
 6. prove the 2^16-row benchmark trace (493 columns, production
    ``FriConfig()``) without ``range_lookup`` once, and verify it;
 7. the main path at full width: ``exact_trace_program(16)`` interpreted
@@ -130,7 +139,8 @@ run of phase 7, for ``p2_permute`` the syscall run of phase 5, for the
 hash kernels the crypto phase's 65,536-lane run, for
 ``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
 ``p2_compress_level``, which no path launches any more; beside them the
-launches of the other paths, the deferred one of phase 9 included, and
+launches of the other paths, the deferred one of phase 9 and the mesh
+phase's included, and
 for ``interp_run`` both builds' 2^16 launch and bound; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
@@ -1649,6 +1659,214 @@ def phase_crypto(results) -> dict:
     return stats
 
 
+# ============================================================================
+# The mesh phase: zkir_tpu_torch.parallel on the card
+# ============================================================================
+
+MESH_BUDGET_S = 90
+MESH_GLOO_RANKS = 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One gloo rank of (b), on ``cuda:0`` with the others: the entry
+    points at (b)'s shapes, each gathered and held against the
+    single-device port; its launch counts and plain-version calls saved
+    for the parent.  A difference raises, and the rank fails."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from zkir_tpu_torch import parallel as par
+    from zkir_tpu_torch.tools import mesh_bench as mb
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = par.make_mesh(world, device="cuda", backend="gloo")
+        calls, single = mb.setup(mesh, mb.SHAPES["gloo"])
+        with plain_calls() as plain:
+            out, launches = mb.run_counted(calls, True)
+        wholes = {name: mb.whole(name, out.pop(name), mesh)
+                  for name in mb.ENTRY_POINTS}
+        for name, got in wholes.items():
+            max_abs_err(f"gloo rank {rank} {name}", got,
+                        mb.as_tuple(name, single[name]()))
+        torch.save({"launches": launches, "plain_calls": plain,
+                    "device": str(mesh.device)},
+                   pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_bounds(shape: dict, ins: dict, instr: int) -> dict:
+    """Each entry point's bound at ``shape``: the function's inputs read
+    once and outputs written once, or its operations (the NTTs'
+    butterflies and products by this build's SASS, a permutation per
+    sponge block and tree node, the interpreter's floor a cycle)."""
+    log_ntt, (c, log_lde) = shape["log_ntt"], shape["lde"]
+    n = 1 << log_lde
+    rows, w = shape["merkle"]
+    lanes, log_n = shape["lanes"], shape["log_step"]
+    perm = P2_INSTR_PER_PERMUTATION
+    ntt_bound = bound(8 * 4 * (1 << log_ntt), ntt_ops(ins, 1, log_ntt))
+    return {
+        "dist_ntt": ntt_bound, "dist_ntt_natural": ntt_bound,
+        "dist_lde": bound(8 * c * (n + 2 * 4 * n),
+                          ntt_ops(ins, c, log_lde)
+                          + ntt_ops(ins, c, log_lde + 2, first=2,
+                                    products=n)),
+        "dist_merkle_root": bound(8 * (rows * w + 8),
+                                  perm * (rows * (w // 8 + 1) + rows - 1)),
+        "prove_step_sharded": bound(
+            2 * lanes * 16 * 12 + 8 * 8,
+            instr * 512 * lanes + ntt_ops(ins, 1, log_n)
+            + perm * (2 * (1 << log_n) - 1)),
+    }
+
+
+def phase_mesh(results, floor=None) -> dict:
+    """``zkir_tpu_torch.parallel`` on the card, through
+    ``tools/mesh_bench.py``'s cases.  (a) A world of one NCCL rank at full
+    width: ``dist_ntt`` and ``dist_ntt_natural`` of one CM31 column of
+    2^24 against ``cm31_ntt``, ``dist_lde`` of the main path's 596
+    columns [596, 2^16] -> 2^18 against ``lde``, ``dist_merkle_root`` of
+    its committed rows [2^18, 1192] against ``p2_sponge_rows`` +
+    ``p2_merkle_tree``, and ``prove_step_sharded`` at the reference
+    benchmark's interpreter shape (loop program, 65,536 lanes, chunk 512,
+    log_n 24) against the same composition on one device: word for word,
+    each run with the launch counts set to 0 just before and read just
+    after (its kernels and no other, no plain version on a card tensor),
+    then timed by CUDA events beside the single-device time and the
+    bound, with each kernel's device time (``torch.profiler``) for the
+    NTTs and the step.  (b) 4 gloo ranks that all use ``cuda:0``,
+    spawned here, at smaller shapes (2^20; [64, 2^16]; [2^16, 64]; 8,192
+    lanes, log_n 16): every rank's results, gathered, equal to the
+    single-device port's, every rank's launches checked.  (b)'s seconds
+    are a correctness run's, not a scaling figure.  At most
+    ``MESH_BUDGET_S`` seconds."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch import parallel as par
+    from zkir_tpu_torch.tools import mesh_bench as mb
+    from zkir_tpu_torch.tools.sass_count import ntt_instructions
+
+    t_phase = time.perf_counter()
+    ins = results.get("ntt_instructions") or ntt_instructions(
+        _kernels._nvcc(), _kernels.CSRC, _kernels.BUILD / "sass_probe")
+    instr = (floor or interp_floor())["thread"]["bound_instr"]
+    shape = mb.SHAPES["full"]
+    bounds = mesh_bounds(shape, ins, instr)
+    shapes = {"dist_ntt": "[2^24]", "dist_ntt_natural": "[2^24]",
+              "dist_lde": "[596, 2^16] -> 2^18",
+              "dist_merkle_root": "[2^18, 1192]",
+              "prove_step_sharded": "65536 lanes x 512, log_n 24"}
+
+    # (a) A world of one NCCL rank, at full width.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(1)
+        calls, single = mb.setup(mesh, shape)
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            out, launches = mb.run_counted(calls, True)
+        first_s = time.perf_counter() - t0
+        if plain:
+            raise AssertionError(f"the mesh path ran plain versions on card "
+                                 f"tensors: {sorted(set(plain))}")
+        if mb.launch_problems(launches, 1):
+            raise AssertionError(f"mesh launches: "
+                                 f"{mb.launch_problems(launches, 1)}")
+        if bool((out["prove_step_sharded"][0].cycles != 512).any()):
+            raise AssertionError("prove_step_sharded: the lanes did not all "
+                                 "run 512 cycles")
+        for name in mb.ENTRY_POINTS:
+            err = max_abs_err(f"mesh {name}",
+                              mb.whole(name, out.pop(name), mesh),
+                              mb.as_tuple(name, single[name]()))
+            iters = 3 if name in ("dist_merkle_root",
+                                  "prove_step_sharded") else 5
+            ms = cuda_ms(calls[name], iters)
+            single_ms = cuda_ms(single[name], iters)
+            key = f"mesh {name} {shapes[name]}"
+            results[key] = {"max_abs_err": err, "ms": ms,
+                            "single_ms": single_ms, **bounds[name],
+                            "launches": launches[name]}
+            if name in ("dist_ntt_natural", "prove_step_sharded"):
+                # Where the time goes: each kernel's device time, the
+                # copies and NCCL's among them, on both paths.
+                results[key]["device_ms"] = device_ms(calls[name], 3)
+                results[key]["single_device_ms"] = device_ms(single[name], 3)
+            log(f"{key}: exact against one device; {ms:.4f} ms on a mesh "
+                f"of one NCCL rank, {single_ms:.4f} ms on one device, "
+                f"bound {bounds[name]['bound_ms']:.4f} ms by "
+                f"{bounds[name]['bound_by']}; launches {launches[name]}")
+        del calls, single, out
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    path = {}
+    for counts in launches.values():
+        for kname, v in counts.items():
+            path[kname] = path.get(kname, 0) + v
+    stats = {"nccl_first_run_s": first_s, "launches": path}
+
+    # (b) 4 gloo ranks sharing cuda:0, spawned here.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(MESH_GLOO_RANKS, free_port(), tmp),
+            nprocs=MESH_GLOO_RANKS, join=False, start_method="spawn")
+        deadline = t_phase + MESH_BUDGET_S
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.perf_counter())):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the gloo ranks did not finish in "
+                                         "the phase's budget")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(pathlib.Path(tmp) / f"rank{r}.pt",
+                            weights_only=False)
+                 for r in range(MESH_GLOO_RANKS)]
+    gloo_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        problems = mb.launch_problems(got["launches"], MESH_GLOO_RANKS)
+        if got["plain_calls"] or got["device"] != "cuda:0" or problems:
+            raise AssertionError(f"gloo rank {r} on {got['device']}: plain "
+                                 f"versions {got['plain_calls']}, launches "
+                                 f"{problems}")
+    stats.update(gloo_ranks=MESH_GLOO_RANKS, gloo_correctness_run_s=gloo_s,
+                 gloo_launches=[g["launches"] for g in ranks])
+    phase_s = time.perf_counter() - t_phase
+    log(f"mesh (b): {MESH_GLOO_RANKS} gloo ranks on cuda:0, every result "
+        f"equal to one device's, each rank's launches as expected "
+        f"({gloo_s:.1f} s, a correctness run); phase {phase_s:.1f} s")
+    if phase_s > MESH_BUDGET_S:
+        raise AssertionError(f"the mesh phase took {phase_s:.1f} s of its "
+                             f"{MESH_BUDGET_S} s")
+    return stats
+
+
 def deferred_program():
     """ADD, SUB and ADDI chains that take the deferred-carry model into its
     corners: tape values read into a register that ADDI marks accumulated,
@@ -2912,6 +3130,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        stats = phase_mesh(results)
+        print(json.dumps({"mesh": stats, "kernel_cases": results,
+                          "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--quotient"]:
         print(json.dumps({**quotient_only(results), "card": card}))
         print(json.dumps({"ok": True, "device": {
@@ -2932,6 +3158,7 @@ def main() -> int:
     timed("goldens", phase_goldens, results, quotient_stats)
     interp_stats = timed("interpreter", phase_interp, results)
     crypto_stats = timed("crypto", phase_crypto, results)
+    mesh_stats = timed("mesh", phase_mesh, results, interp_stats["floor"])
     full_stats, main_path = timed("2^16 proves", phase_full, results,
                                   quotient_stats)
     stream_stats = timed("streaming", phase_streaming, results,
@@ -2940,7 +3167,8 @@ def main() -> int:
                            interp_stats["floor"])
     del main_path
     stats = {**full_stats, **stream_stats, "interp": interp_stats,
-             "crypto": crypto_stats, "deferred": deferred_stats,
+             "crypto": crypto_stats, "mesh": mesh_stats,
+             "deferred": deferred_stats,
              "cli": timed("cli", phase_cli), "quotient": quotient_stats,
              "phase_s": phase_s}
     if quotient_codegen.compiles != quotient_stats["compiled"]:
@@ -2955,7 +3183,8 @@ def main() -> int:
     # prove); launches_plain_path: the range_lookup=False
     # prove; launches_streaming_path: the 2^16 streaming prove;
     # launches_deferred_path: the deferred model's 2^16 trace interpreted
-    # and proved with its program bound.
+    # and proved with its program bound; launches_mesh_path: the mesh
+    # phase's distributed entry points on a world of one NCCL rank.
     streamed = stats["stream_2e16_bound"]["launches"]
     deferred_path = deferred_stats["path"]["launches"]
     # interp_run's deferred build: the 2^16 launch alone and its bound,
@@ -2976,6 +3205,7 @@ def main() -> int:
                     stats["prove_2e16"]["launches"][name],
                 "launches_streaming_path": streamed[name],
                 "launches_deferred_path": deferred_path.get(name, 0),
+                "launches_mesh_path": mesh_stats["launches"].get(name, 0),
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}, **extra.get(name, {})}

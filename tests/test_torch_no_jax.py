@@ -3,7 +3,9 @@ import ``jax`` or ``zkir_tpu``, import the port (prover, toolchain,
 interpreter, the batched hashes and CLI), prove golden B, verify the stored program-bound
 golden E (spec, convert, the preprocessed tables and the public demands),
 and drive ``asm``, ``run`` (the native and the oracle engine), ``prove``
-and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU."""
+and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU; and,
+in another such interpreter, import ``zkir_tpu_torch.parallel`` and run a
+one-rank gloo ``dist_ntt_natural`` and ``dist_merkle_root``."""
 
 import os
 import pathlib
@@ -73,3 +75,49 @@ def test_port_needs_no_jax():
                                   OMP_NUM_THREADS="2"))
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+PARALLEL_SCRIPT = r"""
+import socket, sys
+sys.modules["jax"] = None
+sys.modules["zkir_tpu"] = None
+import torch
+import torch.distributed as dist
+import zkir_tpu_torch.parallel
+import zkir_tpu_torch.parallel.distributed, zkir_tpu_torch.parallel.mesh
+import zkir_tpu_torch.parallel.multihost
+from zkir_tpu_torch.ops import merkle, ntt
+from zkir_tpu_torch.parallel import (dist_merkle_root, dist_ntt_natural,
+                                     make_mesh)
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1)
+mesh = make_mesh(device="cpu")
+gen = torch.Generator().manual_seed(7)
+re, im = (torch.randint(0, (1 << 31) - 1, (1 << 10,), generator=gen)
+          for _ in range(2))
+for got, want in zip(dist_ntt_natural(re, im, mesh, 10), ntt.ntt(re, im, 10)):
+    assert torch.equal(got, want)
+rows = torch.randint(0, (1 << 31) - 1, (32, 5), generator=gen)
+want = merkle.root(merkle.build_tree(merkle.hash_rows(rows)))
+assert dist_merkle_root(rows, mesh).tolist() == want.tolist()
+dist.destroy_process_group()
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m.startswith("zkir_tpu.") or m == "zkir_tpu"]
+assert all(sys.modules[m] is None for m in bad), bad
+print("NO_JAX_PARALLEL_OK")
+"""
+
+
+def test_parallel_needs_no_jax():
+    """``zkir_tpu_torch.parallel`` (all four modules) imports neither
+    ``jax`` nor ``zkir_tpu``, and a one-rank gloo world runs
+    ``dist_ntt_natural`` and ``dist_merkle_root`` to the single-device
+    results."""
+    res = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                  OMP_NUM_THREADS="2"))
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NO_JAX_PARALLEL_OK" in res.stdout

@@ -50,6 +50,7 @@ the row's pre-state registers, ``accum_mask`` and word
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional
@@ -967,6 +968,17 @@ class TpuInterpreter:
         """``config.chunk`` cycles of every lane: (state, trace or None)."""
         return interp_chunk(self.code, self.n_words, state, self.config,
                             decoded=self.decoded)
+
+    def with_lanes(self, lanes: int) -> "TpuInterpreter":
+        """This interpreter for states of ``lanes`` lanes: the same
+        program, code and decoded table on the same device, the
+        configuration's ``lanes`` replaced.  A rank's shard of a
+        lane-sharded state (``parallel.sharded_interpreter_state``) runs
+        through the interpreter of its own lane count, since every check
+        and the kernel's layout follow ``config.lanes``."""
+        other = copy.copy(self)
+        other.config = dataclasses.replace(self.config, lanes=lanes)
+        return other
 
     # ------------------------------------------------------------------
     # State construction

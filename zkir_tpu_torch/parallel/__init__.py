@@ -1,0 +1,24 @@
+"""Multi-device parallelism on ``torch.distributed``: meshes, distributed
+kernels, multi-process start.
+
+Counterpart of ``zkir_tpu/parallel``.  Each rank is a process driving one
+device; the functions run SPMD on every rank of a mesh:
+
+- lane parallelism: interpreter lanes sharded over the mesh;
+- trace-row sharding: commitment rows partitioned across ranks;
+- distributed four-step NTT: local column NTTs + twiddle + an
+  ``all_to_all_single`` transpose + local row NTTs;
+- distributed Merkle: per-shard subtrees, ``all_gather`` of the subtree
+  roots, replicated top levels.
+"""
+
+from .mesh import Mesh, make_mesh
+from .distributed import (
+    dist_lde,
+    dist_ntt,
+    dist_ntt_natural,
+    dist_merkle_root,
+    sharded_interpreter_state,
+    prove_step_sharded,
+)
+from .multihost import initialize_multihost, local_lane_slice, process_info
