@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero
 and the quotient's comparisons on goldens C and E and the 2^16 main
 path; ``python3 chip_smoke.py --crypto`` only the kernels' build and the
 ``crypto`` phase after phase 5; ``python3 chip_smoke.py --mesh`` only the
-kernels' build and the ``mesh`` phase after it):
+kernels' build, the ``mesh`` phase after it, the quotient's plans, the
+2^16 main path's matrix and proof, and the ``mesh prove`` phase after
+phase 8):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
@@ -108,7 +110,19 @@ kernels' build and the ``mesh`` phase after it):
    on one coset (log_blowup 0) against the plain version on golden E's
    and the 2^16 main path's inputs; then ``exact_trace_program(20)``
    interpreted on the card, proved by streaming with its program bound
-   and verified (peak device memory, seconds, rows per second);
+   and verified (peak device memory, seconds, rows per second); then the
+   ``mesh prove`` phase (``phase_mesh_prove``, at most 150 s): the 2^16
+   main path proved one-shot and by streaming on a world of one NCCL
+   rank (``prove_trace(mesh=)``, ``prove_trace_streaming(mesh=)``), each
+   proof equal to the single-device proof, each warm prove's launches by
+   kernel equal to one device's, no plain version on a card tensor, warm
+   seconds in turns with one device's and the peak device memory; 4 gloo
+   ranks sharing ``cuda:0`` proving goldens B and E one-shot and C by
+   streaming (blocks of 6 columns) to the reference proofs; ``prove
+   --bind --mesh 1`` in a fresh process writing golden D, and ``warm
+   --log-rows 12 --streaming --cache-dir`` an empty directory building
+   the quotient parts that a later ``prove --streaming`` there loads
+   without a build;
 9. the deferred-carry model (``InterpConfig(deferred=True)``, the
    kernel's deferred build): the interpreter kernel against its plain
    version as in phase 5 on the 64 fuzz programs (two lanes) and on a
@@ -139,8 +153,8 @@ run of phase 7, for ``p2_permute`` the syscall run of phase 5, for the
 hash kernels the crypto phase's 65,536-lane run, for
 ``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
 ``p2_compress_level``, which no path launches any more; beside them the
-launches of the other paths, the deferred one of phase 9 and the mesh
-phase's included, and
+launches of the other paths, the deferred one of phase 9, the mesh
+phase's and the sharded proves' included, and
 for ``interp_run`` both builds' 2^16 launch and bound; max
 |kernel - plain|, kernel and plain milliseconds, the bound and what sets
 it); the line before it holds the timings, stage times and the further
@@ -2183,10 +2197,12 @@ def phase_deferred(results, main_path, floor=None, log_rows=16,
     return stats
 
 
-def run_cli(workdir, *args, expect=0):
-    """``python3 -m zkir_tpu_torch *args`` in ``workdir``: (stdout,
-    stderr, seconds); fails on another exit code than ``expect``."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT), ZKIR_PROVE_LOG="1")
+def run_cli(workdir, *args, expect=0, env=None):
+    """``python3 -m zkir_tpu_torch *args`` in ``workdir``, with ``env``
+    added to the environment: (stdout, stderr, seconds); fails on another
+    exit code than ``expect``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), ZKIR_PROVE_LOG="1",
+               **(env or {}))
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "zkir_tpu_torch", *args],
                          cwd=workdir, env=env, capture_output=True,
@@ -2337,7 +2353,7 @@ def phase_quotient_build() -> dict:
                                                  instructions)
 
     keys = list(QUOTIENT_PLANS.values())
-    shutil.rmtree(qc.BUILD, ignore_errors=True)
+    shutil.rmtree(qc.build_dir(), ignore_errors=True)
     t0 = time.perf_counter()
     qc.prepare(*keys)
     cold = time.perf_counter() - t0
@@ -2363,7 +2379,7 @@ def phase_quotient_build() -> dict:
 
     # Each part's SASS, one cuobjdump a part, as many at once as the host
     # has cores (a part's dump takes seconds).
-    bases = sorted({qc.BUILD / f"part_{part.key}"
+    bases = sorted({qc.build_dir() / f"part_{part.key}"
                     for key in QUOTIENT_PLANS.values()
                     for part in qc.prepare(key)[0].parts})
     with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
@@ -2373,7 +2389,7 @@ def phase_quotient_build() -> dict:
         kernel = qc.prepare(key)[0]
         rows = []
         for part in kernel.parts:
-            base = qc.BUILD / f"part_{part.key}"
+            base = qc.build_dir() / f"part_{part.key}"
             ptxas = base.with_suffix(".log").read_text()
             regs = re.search(r"Used (\d+) registers", ptxas)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
@@ -2397,7 +2413,7 @@ def phase_quotient_build() -> dict:
                         f"{r['spill_loads']} {r['smem_bytes']} {r['sass']}"
                         for r in rows))
     helpers = helper_instructions(_kernels._nvcc(), _kernels.CSRC,
-                                  qc.BUILD / "helpers")
+                                  qc.build_dir() / "helpers")
     log(f"quotient helpers' instructions a call: {helpers}")
     log(f"quotient kernels: {qc.compiles} parts compiled from an empty "
         f"build directory in {cold:.1f} s; loaded in a fresh process with "
@@ -3071,6 +3087,255 @@ def phase_streaming(results, quotient_stats, main_path) -> dict:
     return stats
 
 
+# ============================================================================
+# The sharded prover on the card
+# ============================================================================
+
+MESH_PROVE_BUDGET_S = 150
+# Goldens the gloo ranks of the mesh-prove phase prove: (name, col_block
+# of a streaming prove, or None for one-shot).  B has 493 columns, so every
+# rank's block is padded; C's blocks of 6 columns are padded on 4 ranks.
+MESH_PROVE_GOLDENS = (("b", None), ("e", None), ("c", 6))
+
+
+def _mesh_prove_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One gloo rank of the mesh-prove phase (b), on ``cuda:0`` with the
+    others: goldens B and E one-shot and C by streaming on the mesh, each
+    proof held to the stored reference proof (a difference raises, and
+    the rank fails); its launches, plain-version calls and seconds saved
+    for the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch import parallel as par
+    from zkir_tpu_torch.convert import fixture_from_reference, proof_to_json
+    from zkir_tpu_torch.prover import prove_trace
+    from zkir_tpu_torch.prover.streaming import prove_trace_streaming
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(world, device="cuda", backend="gloo")
+        seconds = {}
+        _kernels.reset_launches()
+        with plain_calls() as plain:
+            for name, col_block in MESH_PROVE_GOLDENS:
+                fx = fixture_from_reference(FIXTURES, f"golden_{name}")
+                t0 = time.perf_counter()
+                if col_block:
+                    proof = prove_trace_streaming(
+                        fx["matrix"], fx["config"], program=fx["program"],
+                        col_block=col_block, mesh=mesh, device="cuda")
+                else:
+                    proof = prove_trace(
+                        fx["matrix"], fx["config"], mesh=mesh,
+                        range_lookup=fx["want"]["range_lookup"],
+                        program=fx["program"], device="cuda")
+                seconds[name] = time.perf_counter() - t0
+                if json.loads(proof_to_json(proof)) != fx["want"]:
+                    raise AssertionError(f"gloo rank {rank}: golden {name} "
+                                         "differs from the reference proof")
+        torch.save({"launches": {k: v for k, v in _kernels.launches.items()
+                                 if v},
+                    "plain_calls": plain, "seconds": seconds,
+                    "device": str(mesh.device)},
+                   pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_prove(main_path) -> dict:
+    """The sharded prover (``prove_trace(mesh=)``,
+    ``prove_trace_streaming(mesh=)``, ``prove --mesh``) on the card.
+    (a) A world of one NCCL rank at full width: the 2^16 main path's
+    matrix proved one-shot with its program bound and by streaming
+    (``col_block=64``) on ``make_mesh(1)``, each equal to the single-device
+    proof, no plain version on a card tensor, and each warm prove's
+    launches by kernel equal to the single-device warm prove's (timed in
+    turns: one device, mesh, mesh, one device), with the peak device
+    memory.  (b) 4 gloo ranks sharing ``cuda:0``, spawned here: goldens B
+    and E one-shot and C by streaming with ``col_block=6``, each rank's
+    proof equal to the stored reference proof.  (c) The CLI in fresh
+    processes: ``prove --bind --mesh 1`` writes golden D as ``prove
+    --bind`` does; ``warm --log-rows 12 --streaming --cache-dir`` an empty
+    directory builds the streaming plan's quotient parts there, and a
+    later ``prove --streaming`` with that ``ZKIR_CACHE_DIR`` builds none.
+    At most ``MESH_PROVE_BUDGET_S`` seconds."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch import parallel as par
+    from zkir_tpu_torch.prover import FriConfig, prove_trace, streaming
+
+    t_phase = time.perf_counter()
+    matrix, program = main_path["matrix"], main_path["program"]
+    stats = {}
+
+    # (a) A world of one NCCL rank, at full width.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(1)
+        for path, kernels, prove in (
+                ("one-shot", PROVER_KERNELS,
+                 lambda mesh: prove_trace(matrix, FriConfig(), mesh=mesh,
+                                          range_lookup=True, program=program,
+                                          device="cuda")),
+                ("streaming", STREAMING_KERNELS,
+                 lambda mesh: streaming.prove_trace_streaming(
+                     matrix, FriConfig(), program=program, col_block=64,
+                     mesh=mesh, device="cuda"))):
+            with plain_calls() as plain:
+                proof, first_s, first = counted(lambda: prove(mesh), kernels)
+            if plain:
+                raise AssertionError(f"the {path} mesh prove ran plain "
+                                     f"versions on the card: "
+                                     f"{sorted(set(plain))}")
+            if proof != main_path["proof"]:
+                raise AssertionError(f"the {path} proof on a mesh of one "
+                                     "rank differs from the single-device "
+                                     "proof")
+            runs = {}
+            for where in ("device", "mesh", "mesh", "device"):
+                got, s, stages, peak = logged_prove(
+                    lambda: prove(mesh if where == "mesh" else None))
+                if got != proof:
+                    raise AssertionError(f"the {path} warm proves differ")
+                runs.setdefault(where, []).append({
+                    "s": s, "peak_bytes": peak, "stages": stages,
+                    "launches": {k: v for k, v in _kernels.launches.items()
+                                 if v}})
+            warm = {where: [r["launches"] for r in rs]
+                    for where, rs in runs.items()}
+            if any(w != warm["device"][0]
+                   for w in warm["device"] + warm["mesh"]):
+                raise AssertionError(f"{path}: launches on a mesh of one "
+                                     f"rank {warm['mesh']}, on one device "
+                                     f"{warm['device']}")
+            stats[path] = {
+                "first_launches": first, "first_s": first_s,
+                "warm_launches": warm["mesh"][0],
+                "warm_launches_total": sum(warm["mesh"][0].values()),
+                "mesh_warm_s": [r["s"] for r in runs["mesh"]],
+                "device_warm_s": [r["s"] for r in runs["device"]],
+                "mesh_peak_bytes": max(r["peak_bytes"] for r in runs["mesh"]),
+                "device_peak_bytes": max(r["peak_bytes"]
+                                         for r in runs["device"]),
+                "mesh_stages": runs["mesh"][-1]["stages"]}
+            log(f"mesh prove (a) {path}: a mesh of one NCCL rank gives the "
+                f"single-device proof; warm launches "
+                f"{stats[path]['warm_launches_total']}, equal by kernel to "
+                f"one device's; warm s on the mesh {stats[path]['mesh_warm_s']}"
+                f", on one device {stats[path]['device_warm_s']}; peak "
+                f"{stats[path]['mesh_peak_bytes'] / 2**30:.3f} GiB against "
+                f"{stats[path]['device_peak_bytes'] / 2**30:.3f}")
+        del proof, got
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) 4 gloo ranks sharing cuda:0, spawned here.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _mesh_prove_rank, args=(MESH_GLOO_RANKS, free_port(), tmp),
+            nprocs=MESH_GLOO_RANKS, join=False, start_method="spawn")
+        deadline = t0 + MESH_PROVE_BUDGET_S / 2
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.perf_counter())):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the gloo ranks did not prove in "
+                                         "their budget")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(pathlib.Path(tmp) / f"rank{r}.pt",
+                            weights_only=False)
+                 for r in range(MESH_GLOO_RANKS)]
+    for r, got in enumerate(ranks):
+        if got["plain_calls"] or got["device"] != "cuda:0" \
+                or not set(PROVER_KERNELS + ["p2_sponge_absorb"]) <= set(
+                    got["launches"]):
+            raise AssertionError(f"gloo rank {r} on {got['device']}: plain "
+                                 f"versions {got['plain_calls']}, launches "
+                                 f"{got['launches']}")
+    stats["gloo"] = {"ranks": MESH_GLOO_RANKS,
+                     "correctness_run_s": time.perf_counter() - t0,
+                     "seconds": [g["seconds"] for g in ranks],
+                     "launches": [g["launches"] for g in ranks]}
+    log(f"mesh prove (b): {MESH_GLOO_RANKS} gloo ranks on cuda:0, goldens "
+        f"B and E one-shot and C by streaming (col_block 6) equal to the "
+        f"reference proofs on every rank "
+        f"({stats['gloo']['correctness_run_s']:.1f} s, a correctness run)")
+
+    # (c) The CLI: prove --mesh 1, and warm into a fresh cache directory.
+    fib = str(ROOT / "examples" / "fibonacci.zkasm")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        out, _, stats["cli_prove_bind_mesh_1_s"] = run_cli(
+            tmp, "prove", fib, "--input", "10", "--bind", "--mesh", "1",
+            "-o", "m.json")
+        if out.strip() != "proved 62 trace rows (62 cycles) -> m.json":
+            raise AssertionError(f"prove --bind --mesh 1: {out}")
+        want = json.loads((FIXTURES / "golden_d.proof.json").read_text())
+        if json.loads((tmp / "m.json").read_text()) != want:
+            raise AssertionError("prove --bind --mesh 1 differs from prove "
+                                 "--bind's golden D")
+        cache = tmp / "cache"
+        out, _, stats["cli_warm_streaming_s"] = run_cli(
+            tmp, "warm", "--log-rows", "12", "--streaming", "--cache-dir",
+            str(cache))
+        if not re.fullmatch(r"warmed prove kernels for 2\^12 rows in "
+                            r"\d+\.\ds", out.strip()):
+            raise AssertionError(f"warm: {out}")
+        built = sorted(cache.glob("quotient/part_*.so"))
+        if not built:
+            raise AssertionError("warm built no quotient part in its cache "
+                                 "directory")
+        _, _, stats["cli_prove_streaming_after_warm_s"] = run_cli(
+            tmp, "prove", fib, "--input", "10", "--streaming", "-o", "s.json",
+            env={"ZKIR_CACHE_DIR": str(cache)})
+        if sorted(cache.glob("quotient/part_*.so")) != built:
+            raise AssertionError("a prove after warm built quotient parts")
+        stats["cli_warm_parts"] = len(built)
+    log(f"mesh prove (c): prove --bind --mesh 1 wrote golden D; warm "
+        f"--log-rows 12 --streaming built {len(built)} quotient parts in its "
+        f"cache directory ({stats['cli_warm_streaming_s']:.1f} s), and a "
+        f"prove --streaming after it built none")
+    phase_s = time.perf_counter() - t_phase
+    stats["phase_s"] = phase_s
+    if phase_s > MESH_PROVE_BUDGET_S:
+        raise AssertionError(f"the mesh-prove phase took {phase_s:.1f} s of "
+                             f"its {MESH_PROVE_BUDGET_S} s")
+    return stats
+
+
+def main_path_alone() -> dict:
+    """The 2^16 main path's matrix, program and one-shot proof, made on the
+    card without the phases before it (``--mesh``)."""
+    from zkir_tpu_torch.prover import FriConfig, prove_trace
+    from zkir_tpu_torch.prover.benchtrace import (exact_trace_matrix,
+                                                  exact_trace_program)
+
+    program = exact_trace_program(16)
+    matrix = exact_trace_matrix(16, device="cuda")
+    return {"matrix": matrix, "program": program,
+            "proof": prove_trace(matrix, FriConfig(), range_lookup=True,
+                                 program=program, device="cuda")}
+
+
 def quotient_only(results) -> dict:
     """``--quotient``: the quotient's build, then its kernels against the
     plain version on golden C's and E's inputs and on the 2^16 main
@@ -3132,8 +3397,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh"]:
         stats = phase_mesh(results)
-        print(json.dumps({"mesh": stats, "kernel_cases": results,
-                          "card": card}))
+        t0 = time.perf_counter()
+        quotient_codegen.prepare(*QUOTIENT_PLANS.values())
+        log(f"quotient plans built in {time.perf_counter() - t0:.1f} s")
+        prove_stats = phase_mesh_prove(main_path_alone())
+        print(json.dumps({"mesh": stats, "mesh_prove": prove_stats,
+                          "kernel_cases": results, "card": card}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3163,12 +3432,13 @@ def main() -> int:
                                   quotient_stats)
     stream_stats = timed("streaming", phase_streaming, results,
                          quotient_stats, main_path)
+    mesh_prove_stats = timed("mesh prove", phase_mesh_prove, main_path)
     deferred_stats = timed("deferred", phase_deferred, results, main_path,
                            interp_stats["floor"])
     del main_path
     stats = {**full_stats, **stream_stats, "interp": interp_stats,
              "crypto": crypto_stats, "mesh": mesh_stats,
-             "deferred": deferred_stats,
+             "mesh_prove": mesh_prove_stats, "deferred": deferred_stats,
              "cli": timed("cli", phase_cli), "quotient": quotient_stats,
              "phase_s": phase_s}
     if quotient_codegen.compiles != quotient_stats["compiled"]:
@@ -3184,7 +3454,9 @@ def main() -> int:
     # prove; launches_streaming_path: the 2^16 streaming prove;
     # launches_deferred_path: the deferred model's 2^16 trace interpreted
     # and proved with its program bound; launches_mesh_path: the mesh
-    # phase's distributed entry points on a world of one NCCL rank.
+    # phase's distributed entry points on a world of one NCCL rank;
+    # launches_mesh_prove_path and launches_mesh_streaming_path: the first
+    # one-shot and streaming proves of the 2^16 main path on that world.
     streamed = stats["stream_2e16_bound"]["launches"]
     deferred_path = deferred_stats["path"]["launches"]
     # interp_run's deferred build: the 2^16 launch alone and its bound,
@@ -3206,6 +3478,10 @@ def main() -> int:
                 "launches_streaming_path": streamed[name],
                 "launches_deferred_path": deferred_path.get(name, 0),
                 "launches_mesh_path": mesh_stats["launches"].get(name, 0),
+                "launches_mesh_prove_path": mesh_prove_stats["one-shot"]
+                ["first_launches"].get(name, 0),
+                "launches_mesh_streaming_path": mesh_prove_stats["streaming"]
+                ["first_launches"].get(name, 0),
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}, **extra.get(name, {})}

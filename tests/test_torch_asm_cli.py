@@ -3,7 +3,8 @@
 Assembler and disassembler: the same sources give the same bytes, the same
 listings and the same error texts in both packages.  CLI: ``main([...,
 "--device", "cpu", ...])`` in-process reproduces the reference CLI's
-golden proofs and printed lines.
+golden proofs and printed lines, also on a mesh of two gloo ranks
+(``prove --mesh 2``), and ``warm`` prints the reference's line.
 """
 
 import json
@@ -196,12 +197,75 @@ def test_prove_streaming_bind_reproduces_golden_d(tmp_path, capsys):
     assert json.loads(path.read_text()) == want
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--streaming", "--mesh", "4"], "ROADMAP Queue 1: multi-GPU"),
-    (["--mesh", "4"], "ROADMAP Queue 1: multi-GPU")])
-def test_unported_prove_options_name_their_roadmap_items(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli("prove", FIB, "--input", "10", *flag)
+@pytest.mark.parametrize("flags", [
+    ["--bind"], ["--streaming", "--bind", "--col-block", "100"]],
+    ids=["one-shot", "streaming"])
+def test_prove_on_a_mesh_of_two_reproduces_golden_d(tmp_path, capfd, flags):
+    """``prove --mesh 2`` on the CPU: two gloo ranks, a process each, prove
+    over ``make_mesh(2)``; rank 0 writes golden D and prints the line, the
+    other rank prints nothing."""
+    path = tmp_path / "d.json"
+    assert cli("prove", FIB, "--input", "10", *flags, "--mesh", "2", "-o",
+               str(path)) == 0
+    assert capfd.readouterr().out == \
+        f"proved 62 trace rows (62 cycles) -> {path}\n"
+    want = json.loads((FIXTURES / "golden_d.proof.json").read_text())
+    assert json.loads(path.read_text()) == want
+
+
+@pytest.mark.parametrize("n", ["3", "6"])
+def test_prove_refuses_a_mesh_of_no_power_of_two(n):
+    with pytest.raises(SystemExit, match="power of two"):
+        cli("prove", FIB, "--input", "10", "--mesh", n)
+
+
+def test_prove_refuses_more_ranks_than_cards(monkeypatch):
+    """On ``cuda`` every rank needs a card of its own: a mesh larger than
+    the card count is refused before any rank starts (the card count is
+    faked here; no process is spawned)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit,
+                       match="requested 2 devices, only 1 available"):
+        main(["prove", FIB, "--input", "10", "--mesh", "2"])
+
+
+def test_a_failing_rank_fails_the_prove(tmp_path):
+    """Both ranks of ``prove --mesh 2`` fail to read a missing program: the
+    command raises with a rank's traceback (``python -m`` exits 1)."""
+    import torch.multiprocessing as mp
+
+    with pytest.raises(mp.ProcessRaisedException, match="FileNotFoundError"):
+        cli("prove", str(tmp_path / "missing.zkasm"), "--mesh", "2")
+
+
+@pytest.mark.parametrize("flags", [[], ["--streaming"]],
+                         ids=["one-shot", "streaming"])
+def test_warm_proves_and_prints_the_reference_line(
+        monkeypatch, tmp_path, capsys, flags):
+    """``warm --log-rows 10``: a synthetic 2^10-row trace proved and
+    verified, the reference's line printed; ``--cache-dir`` moves the
+    quotient's build directory (on the CPU nothing is built there)."""
+    import re
+
+    from zkir_tpu_torch.prover import quotient_codegen
+
+    monkeypatch.delenv("ZKIR_CACHE_DIR", raising=False)
+    assert cli("warm", "--log-rows", "10", "--cache-dir", str(tmp_path),
+               *flags) == 0
+    assert re.fullmatch(r"warmed prove kernels for 2\^10 rows in \d+\.\ds\n",
+                        capsys.readouterr().out)
+    assert quotient_codegen.build_dir() == tmp_path / "quotient"
+    assert not (tmp_path / "quotient").exists()
+
+
+def test_cache_dir_names_the_quotient_build_directory(monkeypatch, tmp_path):
+    from zkir_tpu_torch.prover import quotient_codegen
+
+    monkeypatch.delenv("ZKIR_CACHE_DIR", raising=False)
+    assert quotient_codegen.build_dir() == quotient_codegen.BUILD
+    monkeypatch.setenv("ZKIR_CACHE_DIR", str(tmp_path))
+    assert quotient_codegen.build_dir() == tmp_path / "quotient"
 
 
 def test_default_device_needs_a_gpu(capsys):

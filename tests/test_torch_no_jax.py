@@ -4,8 +4,9 @@ interpreter, the batched hashes and CLI), prove golden B, verify the stored prog
 golden E (spec, convert, the preprocessed tables and the public demands),
 and drive ``asm``, ``run`` (the native and the oracle engine), ``prove``
 and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU; and,
-in another such interpreter, import ``zkir_tpu_torch.parallel`` and run a
-one-rank gloo ``dist_ntt_natural`` and ``dist_merkle_root``."""
+in another such interpreter, import ``zkir_tpu_torch.parallel``, run a
+one-rank gloo ``dist_ntt_natural`` and ``dist_merkle_root``, prove golden
+B on that mesh, and run the CLI's ``warm``."""
 
 import os
 import pathlib
@@ -78,9 +79,10 @@ def test_port_needs_no_jax():
 
 
 PARALLEL_SCRIPT = r"""
-import socket, sys
+import contextlib, io, json, pathlib, socket, sys
 sys.modules["jax"] = None
 sys.modules["zkir_tpu"] = None
+import numpy as np
 import torch
 import torch.distributed as dist
 import zkir_tpu_torch.parallel
@@ -89,6 +91,9 @@ import zkir_tpu_torch.parallel.multihost
 from zkir_tpu_torch.ops import merkle, ntt
 from zkir_tpu_torch.parallel import (dist_merkle_root, dist_ntt_natural,
                                      make_mesh)
+import zkir_tpu_torch.cli
+from zkir_tpu_torch.convert import proof_to_json
+from zkir_tpu_torch.prover import FriConfig, prove_trace
 s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
 s.close()
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -102,7 +107,18 @@ for got, want in zip(dist_ntt_natural(re, im, mesh, 10), ntt.ntt(re, im, 10)):
 rows = torch.randint(0, (1 << 31) - 1, (32, 5), generator=gen)
 want = merkle.root(merkle.build_tree(merkle.hash_rows(rows)))
 assert dist_merkle_root(rows, mesh).tolist() == want.tolist()
+fix = pathlib.Path("tests/fixtures/torch_port")
+want = json.loads((fix / "golden_b.proof.json").read_text())
+proof = prove_trace(np.load(fix / "golden_b.matrix.npz")["matrix"],
+                    FriConfig(**want["fri"]["config"]), mesh=mesh,
+                    device="cpu")
+assert json.loads(proof_to_json(proof)) == want
 dist.destroy_process_group()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert zkir_tpu_torch.cli.main(["--device", "cpu", "warm", "--log-rows",
+                                    "10"]) == 0
+assert out.getvalue().startswith("warmed prove kernels for 2^10 rows in ")
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m.startswith("zkir_tpu.") or m == "zkir_tpu"]
 assert all(sys.modules[m] is None for m in bad), bad
@@ -112,9 +128,10 @@ print("NO_JAX_PARALLEL_OK")
 
 def test_parallel_needs_no_jax():
     """``zkir_tpu_torch.parallel`` (all four modules) imports neither
-    ``jax`` nor ``zkir_tpu``, and a one-rank gloo world runs
+    ``jax`` nor ``zkir_tpu``; a one-rank gloo world runs
     ``dist_ntt_natural`` and ``dist_merkle_root`` to the single-device
-    results."""
+    results and proves golden B on its mesh to the reference proof; and
+    ``warm --log-rows 10`` runs through the CLI."""
     res = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=str(ROOT),

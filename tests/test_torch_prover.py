@@ -115,13 +115,9 @@ def test_violating_trace_is_refused():
                     device="cpu")
 
 
-def test_unported_options_raise():
+def test_refused_arguments():
     matrix, _ = _golden("b")
-    for kwargs in ({"mesh": object()},
-                   {"range_lookup": True, "mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prove_trace(matrix, device="cpu", **kwargs)
-    # range_lookup and program are ported; a program needs range_lookup.
+    # A program needs range_lookup.
     with pytest.raises(ValueError, match="requires range_lookup"):
         prove_trace(matrix, device="cpu", program=object())
     with pytest.raises(TypeError, match="device"):

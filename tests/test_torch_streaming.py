@@ -7,7 +7,8 @@
 stored reference proofs of goldens C and E (the reference's one-shot
 proofs: its own tests show its streaming proof is the same), with two
 block sizes, accepted by the port's verifier; a tampered trace refused;
-``mesh=`` and ``prove --streaming --checkpoint-dir`` refused.
+``prove --streaming --checkpoint-dir`` refused (``mesh=``:
+``tests/test_torch_sharded_prover.py``).
 """
 
 import json
@@ -143,13 +144,6 @@ def test_streaming_refuses_a_tampered_trace(fixtures):
     bad[2, 8 + 3] ^= 1          # a register value
     with pytest.raises(ConstraintViolation, match="streaming prover"):
         prove_trace_streaming(bad, fx["config"], col_block=1024,
-                              device="cpu")
-
-
-def test_streaming_refuses_a_mesh(fixtures):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: multi-GPU"):
-        prove_trace_streaming(fixtures["c"]["matrix"], mesh=object(),
                               device="cpu")
 
 

@@ -1,10 +1,11 @@
-"""Command-line toolchain: assemble, disassemble, run, prove, verify.
+"""Command-line toolchain: assemble, disassemble, run, prove, warm, verify.
 
 Counterpart of ``zkir_tpu/cli.py``, with the reference's arguments and
 printed lines.  Everything that computes runs on ``--device`` (default
-``cuda``); without a GPU and without ``--device cpu``, ``run``, ``prove``
-and ``verify`` fail with a message instead of running quietly on the CPU
-(``asm``, ``disasm`` and ``run --engine native|oracle`` are host code).
+``cuda``); without a GPU and without ``--device cpu``, ``run``, ``prove``,
+``warm`` and ``verify`` fail with a message instead of running quietly on
+the CPU (``asm``, ``disasm`` and ``run --engine native|oracle`` are host
+code).
 
 Usage:
     python -m zkir_tpu_torch asm program.zkasm -o program.zkir
@@ -13,6 +14,8 @@ Usage:
     python -m zkir_tpu_torch run program.zkir --input 5 --engine native
     python -m zkir_tpu_torch run program.zkir --input 5 --engine oracle
     python -m zkir_tpu_torch prove program.zkir --input 5 --bind -o proof.json
+    python -m zkir_tpu_torch prove program.zkir --input 5 --bind --mesh 4
+    python -m zkir_tpu_torch warm --log-rows 16 [--streaming]
     python -m zkir_tpu_torch verify proof.json --binary program.zkir
     python -m zkir_tpu_torch --device cpu prove program.zkasm --input 5
 
@@ -26,16 +29,27 @@ exit 0); both host engines are refused beside an explicit ``--device
 cuda``.  ``prove --streaming [--col-block N]`` proves with the
 column-streaming prover (the same proof in less device memory; always the
 full constraint set, the program bound only with ``--bind``); it refuses
-``--checkpoint-dir``, which it would not honour.  Not ported: ``--mesh``
-(it raises ``NotImplementedError`` naming its ROADMAP item), and ``warm``
-(there is no compile cache to fill).
+``--checkpoint-dir``, which it would not honour.  ``prove --mesh N``
+starts N local ranks, a process each (NCCL, rank r on ``cuda:r``; gloo
+with ``--device cpu``), each interpreting the program and proving on its
+own device over ``parallel.make_mesh(N)`` (with ``--bind`` and
+``--streaming`` alike); rank 0 writes the proof and prints the line.  N
+must be a power of two, and on ``cuda`` at most the number of cards.
+``warm`` proves and verifies a synthetic trace of 2^``--log-rows`` rows,
+which builds the kernel library and the quotient's generated parts that
+proves of that feature set need (``prover/quotient_codegen.py``; the
+one-coset parts with ``--streaming``); ``--cache-dir D`` sets
+``ZKIR_CACHE_DIR``, so that the parts go to ``D/quotient``, where later
+processes with the same ``ZKIR_CACHE_DIR`` load them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import sys
+import time
 
 
 def _load_program(path: str):
@@ -97,21 +111,54 @@ def cmd_run(args) -> int:
 
 
 def cmd_prove(args) -> int:
-    from .convert import proof_to_json
-    from .interp import InterpConfig, TpuInterpreter
-    from .prover import prove_trace, trace_to_matrix
-
-    if args.mesh:
-        raise NotImplementedError(
-            f"prove {'--streaming ' if args.streaming else ''}--mesh is not "
-            "ported to zkir_tpu_torch yet (ROADMAP Queue 1: multi-GPU)")
     if args.streaming and args.checkpoint_dir:
         raise SystemExit(
             "error: prove --streaming writes no stage checkpoints (the "
             "streaming prover does not persist its stages, so a rerun "
             "could not resume); drop --checkpoint-dir, or prove without "
             "--streaming to checkpoint")
-    device = args.device
+    if not args.mesh:
+        return _prove(args)
+    from .parallel import run_local_ranks
+
+    n = args.mesh
+    if n < 1 or n & (n - 1):
+        raise SystemExit(f"error: --mesh {n}: the prover shards over a "
+                         "power of two of devices")
+    if args.device == "cuda":
+        import torch
+
+        if n > torch.cuda.device_count():
+            raise SystemExit(f"error: --mesh {n}: requested {n} devices, "
+                             f"only {torch.cuda.device_count()} available")
+        # Build once here what every rank loads: the kernel library and
+        # the quotient's parts of this prove's feature set.
+        from . import _kernels
+        from .prover import FriConfig, quotient_codegen
+
+        _kernels.build()
+        # The streaming prover always has the lookups, and evaluates the
+        # quotient on one coset at log_blowup 0.
+        quotient_codegen.prepare(quotient_codegen.plan_key(
+            args.bind or args.streaming, args.bind,
+            0 if args.streaming else FriConfig().log_blowup))
+    run_local_ranks(_prove, n, args, device=args.device)
+    return 0
+
+
+def _prove(args) -> int:
+    """Interpret and prove on ``args.device``, or, on a rank of ``prove
+    --mesh``, on its mesh device; rank 0 writes the proof and prints."""
+    from .convert import proof_to_json
+    from .interp import InterpConfig, TpuInterpreter
+    from .prover import prove_trace, trace_to_matrix
+
+    mesh = None
+    if args.mesh:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(args.mesh, device=args.device)
+    device = args.device if mesh is None else str(mesh.device)
     program = _load_program(args.binary)
     inputs = [int(x, 0) for x in args.input]
     interp = TpuInterpreter(program, InterpConfig(
@@ -124,18 +171,53 @@ def cmd_prove(args) -> int:
 
         proof = prove_trace_streaming(
             matrix, program=program if args.bind else None,
-            col_block=args.col_block, device=device)
+            col_block=args.col_block, mesh=mesh, device=device)
     elif args.bind:
         proof = prove_trace(matrix, range_lookup=True, program=program,
-                            checkpoint_dir=args.checkpoint_dir,
+                            mesh=mesh, checkpoint_dir=args.checkpoint_dir,
                             device=device)
     else:
-        proof = prove_trace(matrix, checkpoint_dir=args.checkpoint_dir,
-                            device=device)
+        proof = prove_trace(matrix, mesh=mesh,
+                            checkpoint_dir=args.checkpoint_dir, device=device)
+    if mesh is not None and mesh.index != 0:
+        return 0
     out = args.output or "proof.json"
     pathlib.Path(out).write_text(proof_to_json(proof))
     print(f"proved {matrix.shape[0]} trace rows "
           f"({int(result['cycles'][0])} cycles) -> {out}")
+    return 0
+
+
+def cmd_warm(args) -> int:
+    """Fill the build caches for a prove shape: prove a synthetic trace of
+    2^``log_rows`` rows (``exact_trace_matrix``) with the full constraint
+    set and no program, as the reference's ``warm`` does, and verify it.
+    On a card this builds the kernel library and the quotient's parts of
+    that feature set (the one-coset parts with ``--streaming``); a later
+    process with the same ``ZKIR_CACHE_DIR`` loads them."""
+    from .prover import FriConfig, prove_trace, verify_trace
+    from .prover.benchtrace import exact_trace_matrix
+
+    if args.cache_dir:
+        # The quotient's parts are built in and loaded from
+        # DIR/quotient (quotient_codegen.build_dir).
+        os.environ["ZKIR_CACHE_DIR"] = args.cache_dir
+    t0 = time.perf_counter()
+    matrix = exact_trace_matrix(args.log_rows, device=args.device)
+    if args.streaming:
+        from .prover.streaming import prove_trace_streaming
+
+        proof = prove_trace_streaming(matrix, FriConfig(),
+                                      col_block=args.col_block,
+                                      device=args.device)
+    else:
+        proof = prove_trace(matrix, FriConfig(), range_lookup=True,
+                            device=args.device)
+    if not verify_trace(proof, device=args.device):
+        raise SystemExit("error: warm: the port's verifier rejects the "
+                         "synthetic proof")
+    print(f"warmed prove kernels for 2^{args.log_rows} rows in "
+          f"{time.perf_counter() - t0:.1f}s")
     return 0
 
 
@@ -214,9 +296,21 @@ def main(argv=None) -> int:
     p.add_argument("--col-block", type=int, default=64,
                    help="streaming column block size (default 64)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard the prove over N devices (not ported yet)")
+                   help="shard the prove over an N-device mesh, a local "
+                        "process a device (composes with --streaming)")
     p.add_argument("-o", "--output")
     p.set_defaults(fn=cmd_prove)
+
+    p = sub.add_parser("warm", help="build the prover's kernels for a "
+                                    "trace size (persistent cache)")
+    p.add_argument("--log-rows", type=int, default=13)
+    p.add_argument("--cache-dir",
+                   help="the build cache's root (ZKIR_CACHE_DIR): the "
+                        "quotient's parts go to DIR/quotient")
+    p.add_argument("--streaming", action="store_true",
+                   help="warm the streaming prover's kernels instead")
+    p.add_argument("--col-block", type=int, default=64)
+    p.set_defaults(fn=cmd_warm)
 
     p = sub.add_parser("verify", help="verify a proof")
     p.add_argument("proof")
@@ -235,7 +329,7 @@ def main(argv=None) -> int:
                 "--device cuda, or pass --engine gpu to run on the GPU")
     args.device = args.device or "cuda"
     # asm, disasm and the host engines of run need no device.
-    if args.fn in (cmd_prove, cmd_verify) or (
+    if args.fn in (cmd_prove, cmd_warm, cmd_verify) or (
             args.fn is cmd_run and args.engine == "gpu"):
         _require_device(args.device)
     return args.fn(args)

@@ -10,6 +10,10 @@ collective on the mesh's process group:
   of a rank's columns are local, the twiddle multiply is elementwise, and
   the transpose is one ``all_to_all_single`` per part (re, im), the only
   traffic; then the length-n2 transforms of the rank's rows.
+- Reshards: ``cols_to_rows`` turns a rank's block of columns into its
+  block of rows (the four-step's transpose, and the sharded prover's move
+  from the column-sharded LDE to row-sharded hashing); ``all_gather_rows``
+  stacks every rank's rows in rank order.
 - Merkle: each rank hashes its row shard into a subtree, the sub-roots
   are ``all_gather``-ed in rank order, and every rank builds the same top
   of the tree.
@@ -62,7 +66,7 @@ def _on_mesh(mesh: Mesh, *tensors) -> None:
                              f"{mesh.device}")
 
 
-def _gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's ``x`` (one shape on every rank) stacked along dim 0
     in rank order: one ``all_gather`` into views of one tensor."""
     x = x.contiguous()
@@ -115,16 +119,19 @@ def _split(log_n: int, d: int) -> Tuple[int, int]:
     return log_n1, log_n2
 
 
-def _transpose(blk: torch.Tensor, mesh: Mesh, n1: int) -> torch.Tensor:
-    """The reshard [n1, n2/D] -> [n1/D, n2] of one part: ``blk`` holds
-    this rank's columns as rows ([n2/D, n1]); rank s gets rows s*n1/D ..
-    of its columns, and the blocks received from ranks 0 .. D-1 sit side
-    by side in column order."""
-    d, w = mesh.size(), blk.shape[0]
-    send = blk.T.contiguous()                 # [n1, w], k1-major
-    recv = torch.empty_like(send)             # [D, n1/D, w] by source rank
+def cols_to_rows(blk: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The column-to-row reshard of one part: ``blk`` is this rank's block
+    of columns [C/D, M] (each row of ``blk`` a column), and the result is
+    this rank's block of rows [M/D, C] of the whole [M, C] matrix, the
+    columns of ranks 0 .. D-1 side by side in column order.  One
+    ``all_to_all_single``: rank s gets rows s*M/D .. of every rank's
+    columns (the reference's ``jax.device_put`` of the transpose onto a
+    row sharding)."""
+    d, w, m = mesh.size(), blk.shape[0], blk.shape[1]
+    send = blk.T.contiguous()                 # [M, C/D], rows in order
+    recv = torch.empty_like(send)             # [D, M/D, C/D] by source rank
     dist.all_to_all_single(recv, send, group=mesh.group)
-    return recv.view(d, n1 // d, w).transpose(0, 1).reshape(n1 // d, d * w)
+    return recv.view(d, m // d, w).transpose(0, 1).reshape(m // d, d * w)
 
 
 def dist_ntt(re, im, mesh: Mesh, log_n: int, axis: str = "d"):
@@ -149,7 +156,7 @@ def dist_ntt(re, im, mesh: Mesh, log_n: int, axis: str = "d"):
     zr, zi = cm31_mul((zr, zi),
                       _twiddle_block(log_n1, log_n2, d, r, re.device))
     # Step 3: transpose reshard [n1, n2/D] -> [n1/D, n2].
-    zr, zi = _transpose(zr, mesh, n1), _transpose(zi, mesh, n1)
+    zr, zi = cols_to_rows(zr, mesh), cols_to_rows(zi, mesh)
     # Step 4: length-n2 NTTs of the rank's rows.
     return cm31_ntt(zr, zi, log_n2, inverse=False)
 
@@ -158,8 +165,8 @@ def dist_ntt_natural(re, im, mesh: Mesh, log_n: int, axis: str = "d"):
     """Distributed NTT returning the 1-D natural-order result on every
     rank (an ``all_gather`` of the rows; for tests)."""
     zr, zi = dist_ntt(re, im, mesh, log_n, axis)
-    return (_gather_rows(zr, mesh).T.reshape(-1),
-            _gather_rows(zi, mesh).T.reshape(-1))
+    return (all_gather_rows(zr, mesh).T.reshape(-1),
+            all_gather_rows(zi, mesh).T.reshape(-1))
 
 
 def dist_lde(cols_r, cols_i, mesh: Mesh, log_n: int, log_blowup: int,
@@ -197,7 +204,7 @@ def dist_merkle_root(rows, mesh: Mesh, axis: str = "d"):
     _place(mesh, axis)
     _on_mesh(mesh, rows)
     sub_root = merkle.build_tree(merkle.hash_rows(rows))[-1]      # [1, 8]
-    roots = _gather_rows(sub_root, mesh)                          # [D, 8]
+    roots = all_gather_rows(sub_root, mesh)                       # [D, 8]
     return merkle.build_tree(roots)[-1][0]
 
 
@@ -242,7 +249,7 @@ def prove_step_sharded(interp, state: MachineState, mesh: Mesh,
     # The low 20 bits of every lane's registers in global lane order
     # (the reference's regs_lo are the low 32 bits of these words), tiled
     # to 2^log_n.
-    col = _gather_rows(new_state.regs, mesh).reshape(-1) & 0xFFFFF
+    col = all_gather_rows(new_state.regs, mesh).reshape(-1) & 0xFFFFF
     n = 1 << log_n
     col = col.repeat(n // col.shape[0] + 1)[:n] % M31_PRIME
     zr, zi = dist_ntt(col, torch.zeros_like(col), mesh, log_n, axis)

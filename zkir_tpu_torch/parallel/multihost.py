@@ -5,13 +5,17 @@ starts the ``torch.distributed`` process group from a ``tcp://``
 rendezvous; the collectives of ``parallel.distributed`` then run over the
 ranks of a ``make_mesh`` mesh, within a host and across hosts alike.  I/O
 tapes and program loading stay local to each process (each feeds its own
-lanes: ``local_lane_slice``).
+lanes: ``local_lane_slice``).  ``run_local_ranks`` starts the ranks of one
+host itself, a process each (``prove --mesh N``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import datetime
+import socket
+from typing import Callable, Optional
 
+import torch
 import torch.distributed as dist
 
 from .mesh import default_backend
@@ -60,3 +64,57 @@ def local_lane_slice(total_lanes: int):
     rank, count, _, _ = process_info()
     per = total_lanes // count
     return rank * per, rank * per + per
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _local_rank(rank: int, fn: Callable, world: int, port: int, device: str,
+                threads: int, args: tuple) -> None:
+    """One rank of ``run_local_ranks``: its process group, then ``fn``."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(threads)
+    dist.init_process_group(default_backend(device),
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_local_ranks(fn: Callable, n: int, *args, device="cuda") -> None:
+    """Start ``n`` ranks on this host, a process each (``spawn``), in one
+    process group (a ``tcp://localhost`` rendezvous on a free port; NCCL
+    with rank r on ``cuda:r``, or gloo for ``device="cpu"``), and run
+    ``fn(*args)`` on each; ``fn`` and ``args`` must pickle.  Returns when
+    every rank has returned.  If a rank fails, the others are stopped and
+    this raises ``torch.multiprocessing.ProcessRaisedException`` (or
+    ``ProcessExitedException``) with the failed rank's traceback.  On
+    ``cuda`` every rank needs its own card: ``n`` above
+    ``torch.cuda.device_count()`` raises ``ValueError`` before any start
+    (NCCL puts no two ranks on one card).  CPU ranks share this process's
+    torch threads."""
+    import torch.multiprocessing as mp
+
+    if n < 1:
+        raise ValueError(f"requested {n} devices")
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "run_local_ranks: device cuda needs an NVIDIA GPU and "
+                "torch.cuda.is_available() is false")
+        available = torch.cuda.device_count()
+        if n > available:
+            raise ValueError(f"requested {n} devices, only {available} "
+                             "available")
+    threads = max(1, torch.get_num_threads() // n)
+    mp.start_processes(_local_rank, args=(fn, n, _free_port(), str(device),
+                                          threads, args),
+                       nprocs=n, join=True, start_method="spawn")

@@ -9,7 +9,10 @@ to ``prove_trace``; the transcript, the padding, the witness functions and
 the verifier's scalar checks are host copies of the reference's.  Proofs
 equal the reference's dict for dict (after a JSON round trip).
 
-Pipeline (one device; sharding is not ported yet):
+Pipeline (on one device, or SPMD on every rank of a ``parallel`` mesh:
+with ``mesh=`` each rank extends its block of the columns, the blocks are
+resharded to rows for hashing, and the later stages run on every rank
+over the gathered extension; ``prove_trace``'s docstring):
 
 1. pad the trace matrix to 2^log_n rows; with ``range_lookup`` fill the
    sorted memory table and append the table and multiplicity columns;
@@ -41,6 +44,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import merkle
 from ..ops.field_ops import m31_mul, m31_sub
@@ -56,6 +60,7 @@ from ..ops.ntt import (
 )
 from ..ops.qm31 import (qm31_add, qm31_add_scalar, qm31_batch_inv,
                         qm31_mul_cm31_scalar, qm31_mul_scalar, qm31_sub)
+from ..parallel.distributed import all_gather_rows, cols_to_rows, dist_lde
 from ..spec.field import M31_PRIME
 from .aux_table import N_AUX_COLS, aux_table_columns
 from .challenger import Challenger
@@ -1053,10 +1058,62 @@ def _stage_logger(device):
     return log
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to zkir_tpu_torch yet (ROADMAP Queue 1: "
-        f"{item})")
+def _mesh_device(mesh, device) -> str:
+    """The device of a prove on ``mesh``: this rank's mesh device.  A
+    ``device`` that names another is refused; ``"cuda"`` names the current
+    card, which ``make_mesh`` made the rank's."""
+    want, have = torch.device(device), mesh.device
+    if want.type != have.type or want.index not in (None, have.index):
+        raise ValueError(f"device {device} is not this rank's mesh device "
+                         f"{have}")
+    if mesh.index is None:
+        raise ValueError("this rank is not in the mesh")
+    return str(have)
+
+
+def _check_mesh(mesh, n_rows: int) -> None:
+    """A mesh the prover can shard a trace of ``n_rows`` (a power of two)
+    over: a power of two that divides the rows, so that every rank's block
+    of rows on the trace subgroup and on each LDE coset is whole."""
+    d = mesh.size()
+    if d & (d - 1):
+        raise ValueError(f"a mesh of {d} devices: the prover shards over a "
+                         "power of two")
+    if n_rows % d:
+        raise ValueError(f"a mesh of {d} devices does not divide the "
+                         f"trace's {n_rows} rows")
+
+
+def _zero_padded(cols, lo: int, hi: int, width: int):
+    """Rows ``lo`` .. ``hi`` of ``cols`` ([C, n]) followed by zero rows up to
+    ``width`` rows."""
+    part = cols[lo:hi]
+    if hi - lo == width:
+        return part
+    return torch.cat([part, part.new_zeros((width - (hi - lo),
+                                            cols.shape[1]))])
+
+
+def _sharded_commit(cols, mesh, log_n: int, log_blowup: int, shift, log):
+    """The trace commitment of ``prove_trace(mesh=)`` on this rank: the
+    columns ([C, n], every rank the same) padded with zero columns to a
+    multiple of D; this rank's block extended (``dist_lde``); the blocks
+    resharded to rows (``cols_to_rows``), the pad columns dropped, this
+    rank's N/D interleaved rows hashed; the digests gathered in rank
+    order.  Returns the whole extension (the pad columns dropped,
+    ``all_gather``-ed for the later stages) and the [N, 8] leaf digests."""
+    d, n_cols = mesh.size(), cols.shape[0]
+    w = -(-n_cols // d)
+    blk_r, blk_i = dist_lde(_zero_padded(cols, 0, n_cols, d * w), None, mesh,
+                            log_n, log_blowup, shift=shift)
+    log(f"lde done ({n_cols} cols, {w} a rank)")
+    rows_r, rows_i = (cols_to_rows(b, mesh)[:, :n_cols]
+                      for b in (blk_r, blk_i))
+    leaves = all_gather_rows(
+        merkle.hash_rows(_interleave_rows(rows_r.T, rows_i.T)), mesh)
+    del rows_r, rows_i
+    ext_r, ext_i = (all_gather_rows(b, mesh)[:n_cols] for b in (blk_r, blk_i))
+    return ext_r, ext_i, leaves
 
 
 def _sums_columns(cols, witnesses, aux_pre, prog, beta, gamma, delta, eta):
@@ -1183,12 +1240,23 @@ def prove_trace(matrix: np.ndarray,
     rerun with identical inputs resumes past completed stages and emits
     a bit-identical proof (all challenges are Fiat-Shamir).
 
-    ``mesh`` raises ``NotImplementedError``, naming the ROADMAP item that
-    ports it."""
-    if mesh is not None:
-        raise _not_ported("prove_trace(mesh=...)", "multi-GPU")
+    With ``mesh`` (a ``parallel.make_mesh`` mesh of D ranks, D a power of
+    two that divides the padded rows), every rank of the mesh calls this
+    with the same arguments, on its mesh device (``device`` must name it),
+    and gets the same proof, equal to the single-device one.  The trace
+    commit is sharded: the columns, padded with zero columns to a multiple
+    of D, are extended a block a rank (``dist_lde``), resharded from
+    columns to rows (``cols_to_rows``; the pad columns dropped), and each
+    rank hashes its N/D rows; the digests are ``all_gather``-ed and every
+    rank builds the whole tree (the openings read every level).  The later
+    stages run on every rank over the whole extension, gathered from the
+    blocks.  With ``checkpoint_dir`` on a mesh, rank 0 writes the stage
+    files and the ranks meet at a barrier after each; every rank resumes
+    from them."""
     if program is not None and not range_lookup:
         raise ValueError("program binding requires range_lookup=True")
+    if mesh is not None:
+        device = _mesh_device(mesh, device)
     log = _stage_logger(device)
     matrix = np.asarray(matrix, dtype=np.uint32)
     store = (None if checkpoint_dir is None else
@@ -1196,14 +1264,31 @@ def prove_trace(matrix: np.ndarray,
                          program))
 
     def stage(name):
-        """The stage's stored artifacts, or None where it must run."""
-        ck = store.load(name) if store is not None else None
+        """The stage's stored artifacts, or None where it must run.  On a
+        mesh every rank has looked before any rank writes the stage."""
+        if store is None:
+            return None
+        ck = store.load(name)
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
         if ck is not None:
             log(f"stage {name} resumed from its checkpoint")
         return ck
 
+    def save(name, artifacts):
+        """Store the stage's artifacts (``artifacts()``): on a mesh rank 0
+        writes them, then the ranks meet."""
+        if store is None:
+            return
+        if mesh is None or mesh.index == 0:
+            store.save(name, artifacts())
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
+
     n_real = matrix.shape[0]
     padded, log_n = _pad_rows(matrix, min_log=10 if range_lookup else 2)
+    if mesh is not None:
+        _check_mesh(mesh, 1 << log_n)
     prog = None
     entry_point = 0
     aux_pre = None
@@ -1246,17 +1331,23 @@ def prove_trace(matrix: np.ndarray,
         ext_i = _words(ck["ext_i"], device)
         levels1 = ck["levels1"]
         trace_rows = _interleave_rows(ext_r, ext_i)
-    else:
+    elif mesh is None:
         ext_r, ext_i = lde(cols, None, log_n, fri_config.log_blowup,
                            shift=shift)
         log(f"lde done ({n_cols} cols)")
         trace_rows = _interleave_rows(ext_r, ext_i)
         levels1 = merkle.to_host(merkle.build_tree_fused(
             merkle.hash_rows(trace_rows)))
-        if store is not None:
-            store.save("commit", {"ext_r": _to_store(ext_r),
-                                  "ext_i": _to_store(ext_i),
-                                  "levels1": levels1})
+    else:
+        ext_r, ext_i, leaves1 = _sharded_commit(
+            cols, mesh, log_n, fri_config.log_blowup, shift, log)
+        levels1 = merkle.to_host(merkle.build_tree_fused(leaves1))
+        del leaves1
+        trace_rows = _interleave_rows(ext_r, ext_i)
+    if ck is None:
+        save("commit", lambda: {"ext_r": _to_store(ext_r),
+                                "ext_i": _to_store(ext_i),
+                                "levels1": levels1})
     if not range_lookup:
         del cols
     root1 = merkle.root(levels1)
@@ -1323,10 +1414,9 @@ def prove_trace(matrix: np.ndarray,
             s_rows = _interleave_rows(s_ext_r, s_ext_i)
             levels_s = merkle.to_host(
                 merkle.build_tree_fused(merkle.hash_rows(s_rows)))
-            if store is not None:
-                store.save("sums", {"s_ext_r": _to_store(s_ext_r),
-                                    "s_ext_i": _to_store(s_ext_i),
-                                    "levels_s": levels_s})
+            save("sums", lambda: {"s_ext_r": _to_store(s_ext_r),
+                                  "s_ext_i": _to_store(s_ext_i),
+                                  "levels_s": levels_s})
         root_s = merkle.root(levels_s)
         log(f"partial sums committed ({n_sums} QM31 columns)")
         challenger.observe_many(int(x) for x in root_s)
@@ -1380,12 +1470,10 @@ def prove_trace(matrix: np.ndarray,
     if ck is None:
         levels2 = merkle.to_host(merkle.build_tree_fused(
             merkle.hash_rows(q_rows)))
-        if store is not None:
-            save = {"levels2": levels2}
-            for k in range(4):
-                save[f"q{k}r"] = _to_store(q_cm_cols[k][0])
-                save[f"q{k}i"] = _to_store(q_cm_cols[k][1])
-            store.save("quotient", save)
+        save("quotient", lambda: {
+            "levels2": levels2,
+            **{f"q{k}{part}": _to_store(q_cm_cols[k][j])
+               for k in range(4) for j, part in enumerate("ri")}})
     root2 = merkle.root(levels2)
     log("quotient committed")
     challenger.observe_many(int(x) for x in root2)
@@ -1406,8 +1494,7 @@ def prove_trace(matrix: np.ndarray,
                               shift=shift)
         del batch4
         log("fri done")
-        if store is not None:
-            store.save("fri", fri_proof)
+        save("fri", lambda: fri_proof)
     del ext_r, ext_i, s_ext_r, s_ext_i, q_cm_cols
 
     # Phase 3: open commitment rows at the FRI query points (and their

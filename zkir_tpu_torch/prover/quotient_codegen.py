@@ -39,10 +39,13 @@ that CPU tensors take).
    passed its barrier.  Every read of a column is a shared-memory load.
 5. Each part is one kernel and one launch.  Its shared library is named
    by a hash of its text, the headers and the flags, and built under
-   ``zkir_tpu_torch/_build/quotient/`` at first use (all missing parts at
-   once, one ``nvcc`` each); a part's text is a function of its terms and
-   of the trace's blowup alone, so feature sets whose terms begin alike
-   share their first parts.  A failed build or launch raises.
+   ``build_dir()`` at first use (``$ZKIR_CACHE_DIR/quotient``, else
+   ``zkir_tpu_torch/_build/quotient/``; all missing parts at once, one
+   ``nvcc`` each; processes that build the same part at once each write
+   its files under a name of their own and rename them); a part's text is
+   a function of its terms and of the trace's blowup alone, so feature
+   sets whose terms begin alike share their first parts.  A failed build
+   or launch raises.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ import ctypes
 import functools
 import hashlib
 import heapq
+import os
+import pathlib
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -464,6 +469,13 @@ class RecAlg:
 # ============================================================================
 # Recording a feature set.
 # ============================================================================
+
+
+def plan_key(range_lookup: bool, program: bool, log_blowup: int):
+    """The (feature set, log_blowup) of the parts that a prove with these
+    options evaluates (``prepare``'s argument): with ``range_lookup`` every
+    lookup feature, the program's with a bound program."""
+    return (range_lookup,) * 5 + (program,), log_blowup
 
 
 def features_of(keys) -> Tuple[bool, ...]:
@@ -1035,7 +1047,7 @@ class Kernel:
 
     def load(self):
         for part in self.parts:
-            lib = ctypes.CDLL(str(BUILD / f"part_{part.key}.so"))
+            lib = ctypes.CDLL(str(build_dir() / f"part_{part.key}.so"))
             fn = lib.quotient_part
             fn.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
@@ -1091,6 +1103,14 @@ def plan(features, log_blowup: int) -> Kernel:
 _PREPARED: Dict[tuple, Kernel] = {}
 
 
+def build_dir() -> pathlib.Path:
+    """Where the parts are built and loaded from: ``quotient`` under
+    ``ZKIR_CACHE_DIR`` (the reference's cache root, which its prove
+    reads) when it is set, else ``BUILD``."""
+    root = os.environ.get("ZKIR_CACHE_DIR")
+    return pathlib.Path(root) / "quotient" if root else BUILD
+
+
 def prepare(*keys) -> List[Kernel]:
     """Record, generate, build and load the kernels of these (feature
     set, log_blowup) pairs (at most once per process each); every part
@@ -1098,17 +1118,22 @@ def prepare(*keys) -> List[Kernel]:
     global compiles
     keys = [(tuple(bool(x) for x in f), int(b)) for f, b in keys]
     todo = [plan(*k) for k in dict.fromkeys(keys) if k not in _PREPARED]
+    build = build_dir()
     missing = {}
     for kernel in todo:
         for part in kernel.parts:
-            if not (BUILD / f"part_{part.key}.so").exists():
+            if not (build / f"part_{part.key}.so").exists():
                 missing[part.key] = part
     if missing:
-        BUILD.mkdir(parents=True, exist_ok=True)
+        build.mkdir(parents=True, exist_ok=True)
         sources = []
         for key, part in sorted(missing.items()):
-            cu = BUILD / f"part_{key}.cu"
-            cu.write_text(part.text)
+            # Written under this process's name, then renamed: nvcc never
+            # reads a file another process is writing.
+            cu = build / f"part_{key}.cu"
+            tmp = cu.with_suffix(f".tmp{os.getpid()}")
+            tmp.write_text(part.text)
+            os.replace(tmp, cu)
             sources.append(cu)
         _kernels.build_generated(sources, NVCC_EXTRA)
         compiles += len(sources)

@@ -30,8 +30,11 @@ The structure it leans on:
   block.
 
 Every stage runs on ``device``; only the roots, the FRI layers and the
-queried rows go to the host.  Not ported: ``mesh=`` (the reference
-shards the blocks' transforms over a device mesh), which raises.
+queried rows go to the host.  With ``mesh=`` (SPMD on every rank of a
+``parallel`` mesh) the commits shard: each rank transforms its share of a
+block's columns, the shares are resharded from columns to rows, and each
+rank's sponge absorbs its n/D rows of every coset; the digests are
+gathered.  The rest runs on every rank, as without a mesh.
 """
 
 from __future__ import annotations
@@ -45,17 +48,19 @@ from ..ops import merkle
 from ..ops.ntt import (cm31_mul_scalar, cm31_pow_scalar, coset_intt,
                        coset_ntt, intt, root_of_unity)
 from ..ops.qm31 import qm31_add
+from ..parallel.distributed import all_gather_rows, cols_to_rows
 from .challenger import Challenger
 from .constraints import N_CR_SUMS, NUM_AUX, NUM_LOOKUP, quotient_evals
 from .fri import FriConfig, fri_prove
 from .prover import (ConstraintViolation, _batch_powers,
                      _build_lookup_columns, _build_memory_table,
-                     _channel_witnesses, _combine_block, _coset_shift,
-                     _gather_rows, _interleave_rows, _not_ported,
-                     _observe_crypto, _observe_io, _open_rows, _pad_rows,
-                     _program_multiplicity, _query_indices, _quotient_args,
-                     _quotient_chunks, _quotient_too_high, _stage_logger,
-                     _sums_columns, _words, crypto_tape_demand,
+                     _channel_witnesses, _check_mesh, _combine_block,
+                     _coset_shift, _gather_rows, _interleave_rows,
+                     _mesh_device, _observe_crypto, _observe_io, _open_rows,
+                     _pad_rows, _program_multiplicity, _query_indices,
+                     _quotient_args, _quotient_chunks, _quotient_too_high,
+                     _stage_logger, _sums_columns, _words, _zero_padded,
+                     crypto_tape_demand,
                      extract_crypto_tape, extract_io, io_tape_demand,
                      memory_init_demand, preprocess_aux, preprocess_program)
 
@@ -97,13 +102,22 @@ class _StreamedCommit:
     columns): per coset, each column block's evaluations are absorbed into
     a ``RowSponge``; one Merkle tree over all cosets' digests; and the
     same evaluations made again, a block at a time, for the openings and
-    the batch combination."""
+    the batch combination.
+
+    With ``mesh`` (every rank holding all the values), the commit shards:
+    each block is padded with zero columns to a multiple of D, each rank
+    transforms its share, the shares are resharded from columns to rows,
+    and each rank's sponge absorbs its n/D rows (a row's words are its
+    own, so a row shard hashes exactly); the digests are gathered in rank
+    order.  The openings and the combination make whole blocks on every
+    rank."""
 
     def __init__(self, vals_r, vals_i, log_n: int, log_blowup: int, shift,
-                 block: int):
+                 block: int, mesh=None):
         self.vals_r, self.vals_i = vals_r, vals_i
         self.log_n, self.log_blowup = log_n, log_blowup
         self.block = block
+        self.mesh = mesh
         self.shifts = _coset_shifts(log_n, log_blowup, shift)
         self.n = 1 << log_n
         self.big = 1 << (log_n + log_blowup)
@@ -123,17 +137,38 @@ class _StreamedCommit:
             None if self.vals_i is None else self.vals_i[b0:b1],
             self.log_n, self.shifts[c])
 
+    def committed_rows(self, c: int, b0: int, b1: int):
+        """This rank's interleaved rows of columns [b0, b1) on coset c: all
+        n rows, or on a mesh its n/D rows, the block's pad columns
+        dropped."""
+        if self.mesh is None:
+            return _interleave_rows(*self.coset_evals(c, b0, b1))
+        d, r = self.mesh.size(), self.mesh.index
+        w = -(-(b1 - b0) // d)
+        lo, hi = min(b0 + r * w, b1), min(b0 + (r + 1) * w, b1)
+        share = _eval_block(
+            _zero_padded(self.vals_r, lo, hi, w),
+            None if self.vals_i is None else _zero_padded(self.vals_i, lo,
+                                                          hi, w),
+            self.log_n, self.shifts[c])
+        rows_r, rows_i = (cols_to_rows(x, self.mesh)[:, :b1 - b0]
+                          for x in share)
+        return _interleave_rows(rows_r.T, rows_i.T)
+
     def commit(self) -> np.ndarray:
         """The Merkle root of the interleaved rows over the whole domain;
         the tree's levels stay in ``self.levels`` (host)."""
         blowup = 1 << self.log_blowup
         leaves = torch.empty((self.big, merkle.DIGEST_WIDTH),
                              dtype=torch.int64, device=self.device)
+        rows = self.n // (1 if self.mesh is None else self.mesh.size())
         for c in range(blowup):
-            sponge = merkle.RowSponge(self.n, device=self.device)
+            sponge = merkle.RowSponge(rows, device=self.device)
             for b0, b1 in self._blocks():
-                sponge.absorb(_interleave_rows(*self.coset_evals(c, b0, b1)))
-            leaves[c::blowup] = sponge.finalize()
+                sponge.absorb(self.committed_rows(c, b0, b1))
+            digests = sponge.finalize()
+            leaves[c::blowup] = (digests if self.mesh is None
+                                 else all_gather_rows(digests, self.mesh))
         self.levels = merkle.to_host(merkle.build_tree_fused(leaves))
         return merkle.root(self.levels)
 
@@ -191,16 +226,20 @@ def prove_trace_streaming(matrix: np.ndarray,
     memory, I/O and crypto arguments, and program binding when
     ``program`` is given).  A violated constraint raises
     ``ConstraintViolation`` without a per-term diagnosis (``prove_trace``
-    names the terms).  ``mesh`` raises ``NotImplementedError``, naming
-    the ROADMAP item that ports it."""
-    if mesh is not None:
-        raise _not_ported("prove_trace_streaming(mesh=...)", "multi-GPU")
+    names the terms).  With ``mesh`` (every rank of a ``parallel`` mesh
+    calls this with the same arguments, ``device`` naming its mesh device)
+    the commits shard over the mesh (``_StreamedCommit``) and every rank
+    gets the same proof."""
     if col_block < 1:
         raise ValueError(f"col_block must be >= 1, got {col_block}")
+    if mesh is not None:
+        device = _mesh_device(mesh, device)
     log = _stage_logger(device)
     matrix = np.asarray(matrix, dtype=np.uint32)
     n_real = matrix.shape[0]
     padded, log_n = _pad_rows(matrix, min_log=10)
+    if mesh is not None:
+        _check_mesh(mesh, 1 << log_n)
     if padded is matrix:
         padded = matrix.copy()          # the memory table is filled in place
     _build_memory_table(padded, n_real, program=program)
@@ -236,7 +275,7 @@ def prove_trace_streaming(matrix: np.ndarray,
     vals = torch.cat([_words(padded, device).T,
                       _words(extra, device).T]).contiguous()
     tc = _StreamedCommit(vals, None, log_n, fri_config.log_blowup, shift,
-                         col_block)
+                         col_block, mesh)
     root1 = tc.commit()
     log(f"trace committed (streamed, {n_cols} cols, 2^{log_n} rows)")
 
@@ -263,7 +302,7 @@ def prove_trace_streaming(matrix: np.ndarray,
                              beta, gamma, delta, eta)
     log(f"partial sums built ({n_sums} QM31 columns)")
     sc = _StreamedCommit(s_r, s_i, log_n, fri_config.log_blowup, shift,
-                         col_block)
+                         col_block, mesh)
     root_s = sc.commit()
     log(f"partial sums committed (streamed, {n_sums} QM31 columns)")
     challenger.observe_many(int(x) for x in root_s)

@@ -26,10 +26,22 @@ timed on the first card beside the one-rank mesh.  One JSON line per mesh
 size, after the card's name and power limit; ``--out`` appends the lines
 to a file.
 
-``--device cpu --small`` runs the same on gloo ranks at small shapes:
-a dry run of the tool without a GPU.  ``chip_smoke.py``'s ``mesh`` phase
-drives the same entry points through ``setup``, ``run_counted``,
-``whole`` and ``as_tuple``.
+``--prove`` times the sharded prover instead, on the same meshes: the
+2^16 main path (``exact_trace_program(16)``, interpreted on each rank's
+card) proved one-shot with its program bound (``prove_trace(mesh=)``,
+``FriConfig()``), and 2^20 rows by streaming (``prove_trace_streaming(
+mesh=, col_block=64)``).  Each path is first proved on one card without a
+mesh (the first rank alone), then on meshes of 1, 2, 4 ... ranks: a first
+prove and warm ones (five at 2^16, three at 2^20), each started after a
+barrier and ended by ``torch.cuda.synchronize()``; every rank's seconds,
+launches and peak device memory, and whether its proof is the one card's,
+word for word (the SHA-256 of the proof's JSON).  The parent builds the
+quotient's parts of both paths before it starts the ranks.
+
+``--device cpu --small`` runs the same on gloo ranks at small shapes
+(``--prove``: 2^10 rows on both paths): a dry run of the tool without a
+GPU.  ``chip_smoke.py``'s ``mesh`` phase drives the same entry points
+through ``setup``, ``run_counted``, ``whole`` and ``as_tuple``.
 """
 
 from __future__ import annotations
@@ -72,6 +84,9 @@ ENTRY_POINTS = tuple(KERNELS)
 # The entry points whose device time each kernel takes (the collectives'
 # among them) is profiled on the first rank.
 PROFILED = ("dist_ntt", "dist_ntt_natural")
+# --prove: (path, log_rows, warm proves) at each size.
+PROVES = {"full": (("one-shot", 16, 5), ("streaming", 20, 3)),
+          "small": (("one-shot", 10, 1), ("streaming", 10, 1))}
 
 
 def step_interp(lanes: int, device):
@@ -196,14 +211,14 @@ def as_tuple(name: str, result) -> tuple:
 def whole(name: str, got, mesh) -> tuple:
     """The whole result of one entry point from this rank's part, on
     every rank (collective), as the tensors to compare."""
-    from zkir_tpu_torch.parallel.distributed import _gather_rows
+    from zkir_tpu_torch.parallel.distributed import all_gather_rows
 
     if name in ("dist_ntt", "dist_lde"):
-        return tuple(_gather_rows(t, mesh) for t in got)
+        return tuple(all_gather_rows(t, mesh) for t in got)
     if name == "prove_step_sharded":
         new_state, root = got
-        return (_gather_rows(new_state.regs, mesh),
-                _gather_rows(new_state.cycles, mesh), root)
+        return (all_gather_rows(new_state.regs, mesh),
+                all_gather_rows(new_state.cycles, mesh), root)
     return as_tuple(name, got)
 
 
@@ -292,7 +307,7 @@ def _on_mesh(mesh, shape: dict, iters: int, cuda: bool) -> dict:
     import torch
     import torch.distributed as dist
 
-    from zkir_tpu_torch.parallel.distributed import _gather_rows
+    from zkir_tpu_torch.parallel.distributed import all_gather_rows
 
     calls, single = setup(mesh, shape)
     got, launches = run_counted(calls, cuda)
@@ -304,7 +319,7 @@ def _on_mesh(mesh, shape: dict, iters: int, cuda: bool) -> dict:
         del parts
         ms = torch.tensor([_timed(calls[name], mesh, iters, cuda)],
                           dtype=torch.float64, device=mesh.device)
-        by_rank = _gather_rows(ms, mesh).tolist()       # [[mean, median]]
+        by_rank = all_gather_rows(ms, mesh).tolist()   # [[mean, median]]
         all_launches = [None] * mesh.size()
         dist.all_gather_object(all_launches, launches[name],
                                group=mesh.group)
@@ -324,8 +339,98 @@ def _on_mesh(mesh, shape: dict, iters: int, cuda: bool) -> dict:
     return out
 
 
+def _prove_fn(path: str, log_rows: int, device: str):
+    """The 2^log_rows main path's prove of ``path`` as a function of the
+    mesh (``None``: one device)."""
+    from zkir_tpu_torch.prover import FriConfig, prove_trace
+    from zkir_tpu_torch.prover.benchtrace import (exact_trace_matrix,
+                                                  exact_trace_program)
+    from zkir_tpu_torch.prover.streaming import prove_trace_streaming
+
+    program = exact_trace_program(log_rows)
+    matrix = exact_trace_matrix(log_rows, device=device)
+
+    def prove(mesh):
+        if path == "streaming":
+            return prove_trace_streaming(matrix, FriConfig(), program=program,
+                                         col_block=64, mesh=mesh,
+                                         device=device)
+        return prove_trace(matrix, FriConfig(), range_lookup=True,
+                           program=program, mesh=mesh, device=device)
+    return prove
+
+
+def _proves(rank: int, world: int, device: str, proves) -> list:
+    """``--prove`` on this rank: each path on one device (the first rank),
+    then on meshes of 1, 2, 4 ... ranks; the first rank's lines."""
+    import hashlib
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch import parallel as par
+    from zkir_tpu_torch.convert import proof_to_json
+
+    cuda = device == "cuda"
+    lines = []
+    for path, log_rows, iters in proves:
+        prove = _prove_fn(path, log_rows, device)
+        size = 0                # 0: one device, no mesh, the first rank
+        while size <= world:
+            mesh = par.make_mesh(size, device=device) if size else None
+            rec = None
+            if (mesh.index is not None) if size else rank == 0:
+                runs = []
+                for _ in range(1 + iters):
+                    if mesh is not None:
+                        _sync(mesh, cuda)
+                    if cuda:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                    _kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    proof = prove(mesh)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    runs.append({
+                        "s": time.perf_counter() - t0,
+                        "launches": sum(_kernels.launches.values()),
+                        "peak_bytes": (torch.cuda.max_memory_allocated()
+                                       if cuda else None),
+                        "sha256": hashlib.sha256(
+                            proof_to_json(proof).encode()).hexdigest()})
+                    del proof
+                rec = {"first_s": runs[0]["s"],
+                       "warm_s": [r["s"] for r in runs[1:]],
+                       "launches": [r["launches"] for r in runs],
+                       "peak_bytes": max(r["peak_bytes"] or 0 for r in runs),
+                       "sha256": sorted({r["sha256"] for r in runs})}
+            got = [None] * world
+            dist.all_gather_object(got, rec)
+            if rank == 0:
+                lines.append({"path": path, "log_rows": log_rows,
+                              "ranks": size or "one device",
+                              "by_rank": [g for g in got if g is not None]})
+            dist.barrier()
+            size = size * 2 if size else 1
+        del prove
+        if cuda:
+            torch.cuda.empty_cache()
+    for line in lines:
+        want = next(x for x in lines if x["path"] == line["path"]
+                    and x["ranks"] == "one device")["by_rank"][0]["sha256"]
+        line["exact"] = all(r["sha256"] == want for r in line["by_rank"])
+        by_rank = line["by_rank"]
+        line["first_s"] = max(r["first_s"] for r in by_rank)
+        line["warm_s"] = [max(r["warm_s"][k] for r in by_rank)
+                          for k in range(len(by_rank[0]["warm_s"]))]
+    return lines
+
+
 def _rank(rank: int, world: int, port: int, device: str, shape: dict,
-          iters: int, out_dir: str) -> None:
+          iters: int, out_dir: str, proves=None) -> None:
     import torch
     import torch.distributed as dist
 
@@ -343,8 +448,10 @@ def _rank(rank: int, world: int, port: int, device: str, shape: dict,
                             timeout=datetime.timedelta(seconds=300))
     lines = []
     try:
+        if proves:
+            lines = _proves(rank, world, device, proves)
         size = 1
-        while size <= world:
+        while size <= world and not proves:
             mesh = par.make_mesh(size, device=device)
             if mesh.index is not None:
                 lines.append(_on_mesh(mesh, shape, iters, cuda))
@@ -362,8 +469,11 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--prove", action="store_true",
+                    help="time the sharded prover instead")
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
+    proves = PROVES["small" if args.small else "full"] if args.prove else None
     import torch
     import torch.multiprocessing as mp
 
@@ -378,8 +488,13 @@ def main() -> int:
         print(card, flush=True)
         sys.path.insert(0, str(ROOT))
         from zkir_tpu_torch import _kernels
+        from zkir_tpu_torch.prover import quotient_codegen
 
         _kernels.build()
+        if proves:
+            # Both paths' parts, built once here for every rank.
+            quotient_codegen.prepare(quotient_codegen.plan_key(True, True, 2),
+                                     quotient_codegen.plan_key(True, True, 0))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -387,7 +502,7 @@ def main() -> int:
         mp.start_processes(
             _rank, args=(args.ranks, port, args.device,
                          SHAPES["small" if args.small else "full"],
-                         args.iters, tmp),
+                         args.iters, tmp, proves),
             nprocs=args.ranks, start_method="spawn")
         lines = json.loads(pathlib.Path(tmp, "lines.json").read_text())
     for line in lines:
@@ -395,8 +510,11 @@ def main() -> int:
         if args.out:
             with open(args.out, "a") as f:
                 f.write(json.dumps(line) + "\n")
-    bad = [(line["ranks"], name) for line in lines
-           for name, e in line["entry_points"].items() if not e["exact"]]
+    bad = [(line["ranks"], line["path"]) for line in lines
+           if not line.get("exact", True)]
+    bad += [(line["ranks"], name) for line in lines
+            for name, e in line.get("entry_points", {}).items()
+            if not e["exact"]]
     if bad:
         print(f"mesh_bench: results differ from one device's: {bad}",
               file=sys.stderr)

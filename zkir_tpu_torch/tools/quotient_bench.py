@@ -90,7 +90,7 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         regs, spills = [], 0
         for part in kernel.parts:
-            ptxas = (qc.BUILD / f"part_{part.key}.log").read_text()
+            ptxas = (qc.build_dir() / f"part_{part.key}.log").read_text()
             regs.append(int(re.search(r"Used (\d+) registers", ptxas)[1]))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", ptxas)
@@ -105,7 +105,7 @@ def main() -> int:
             table_s.append(time.perf_counter() - t0)
         reads = sum(p.reads for p in kernel.parts)
         for part in kernel.parts:
-            base = qc.BUILD / f"part_{part.key}"
+            base = qc.build_dir() / f"part_{part.key}"
             base.with_suffix(".sass").write_text(subprocess.run(
                 [str(cuobjdump), "-sass", str(base.with_suffix(".so"))],
                 capture_output=True, text=True, check=True).stdout)
@@ -120,7 +120,7 @@ def main() -> int:
             "exact": all(torch.equal(g, w) for g, w in zip(got, want)),
             "launches_ms": chip_smoke.cuda_ms(
                 lambda: kernel.launch(tables, dinv, n), 20),
-            "sass": [len(instructions(qc.BUILD / f"part_{p.key}.sass",
+            "sass": [len(instructions(qc.build_dir() / f"part_{p.key}.sass",
                                       "quotient_part_kernel"))
                      for p in kernel.parts],
             "wrapper_ms": chip_smoke.cuda_ms(
