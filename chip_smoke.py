@@ -39,7 +39,7 @@ phase 8):
    against ``build_tree_plain`` and the per-level loop at every tree shape
    of the main path (2^18 .. 2^6 leaves) and at 2 and 4 leaves, timed
    against the loop beside its bound and its latency floor (levels times
-   one permutation's latency, a one-state ``p2_permute`` launch);
+   a narrow level's latency in the kernel's own chain);
 4. prove the small golden traces A-E on the card (A, B without
    ``range_lookup``; C with it; D and E program-bound, with an I/O tape
    and a SHA-256 syscall) and require proofs equal (after a JSON round
@@ -55,8 +55,8 @@ phase 8):
    whole run in segments) against the reference's host loop over the
    plain chunk (result and trace dicts word for word, invalid rows 0):
    the 64 seeded fuzz programs on two lanes each, a memory, I/O and
-   Poseidon2-syscall program on 1,024 lanes with a tape per lane (the
-   path that owns ``p2_permute``), a program whose lanes pause on
+   Poseidon2-syscall program on 1,024 lanes with a tape per lane (its
+   syscalls one ``p2_sponge_bytes`` launch, no ``p2_permute``), a program whose lanes pause on
    Poseidon2 syscalls at different chunks and run ahead of each other
    (4 lanes, a warp each; 2,048, a thread each), the same with a
    ``max_cycles`` that is not a multiple of the chunk,
@@ -70,13 +70,14 @@ phase 8):
    warp per lane) from 1 to 65,536 lanes, and with a trace from 1 to
    1,024 (the wrapper's pick must be the faster); then the ``crypto``
    phase (``phase_crypto``, at most 90 s): the hash kernels
-   (``sha256_blocks``, ``keccak_absorb``, ``b3_chunks``, ``b3_compress``)
-   against their plain versions, exact and timed beside their bounds, and
-   against known answers; ``crypto_lanes_program`` on 65,536 lanes at the
-   reference benchmark's interpreter shape, every lane's outputs equal to
-   a host recomputation and 8 lanes to the oracle VM, each service round's
-   seconds and launches (one launch of each hash kernel a round at most,
-   BLAKE3's tree levels aside); then the ``mesh`` phase (``phase_mesh``,
+   (``sha256_blocks``, ``p2_sponge_bytes``, ``keccak_absorb``,
+   ``b3_rows``, ``b3_compress``) against their plain versions, exact and
+   timed beside their bounds, and against known answers;
+   ``crypto_lanes_program`` on 65,536 lanes at the reference benchmark's
+   interpreter shape, every lane's outputs equal to a host recomputation
+   and 8 lanes to the oracle VM, each service round's seconds and
+   launches (exactly one launch of each of the four hash kernels a round,
+   no ``p2_permute`` and no ``b3_compress``); then the ``mesh`` phase (``phase_mesh``,
    at most 90 s): ``zkir_tpu_torch.parallel``'s distributed entry points
    on a world of one NCCL rank at full width (a 2^24 NTT, the main
    path's LDE and committed rows, the reference benchmark's interpreter
@@ -149,10 +150,10 @@ phase 8):
 
 The line before the last is a JSON object with one entry per kernel
 entry point (launches on the path that owns it: the interpret-and-prove
-run of phase 7, for ``p2_permute`` the syscall run of phase 5, for the
-hash kernels the crypto phase's 65,536-lane run, for
-``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0 for
-``p2_compress_level``, which no path launches any more; beside them the
+run of phase 7, for the hash kernels the crypto phase's 65,536-lane
+run, for ``p2_sponge_absorb`` the 2^16 streaming prove of phase 8, and 0
+for ``p2_compress_level``, ``p2_permute`` and ``b3_compress``, which no
+path launches any more; beside them the
 launches of the other paths, the deferred one of phase 9, the mesh
 phase's and the sharded proves' included, and
 for ``interp_run`` both builds' 2^16 launch and bound; max
@@ -212,6 +213,10 @@ KERNELS = {
                        "zkir_tpu/ops/poseidon2.py:261"),
     "p2_grind": ("zkir_tpu_torch/csrc/poseidon2.cu",
                  "zkir_tpu/ops/poseidon2.py:261"),
+    # The reference services its Poseidon2 syscalls on the host, a
+    # permutation at a time: the Pallas kernel's function.
+    "p2_sponge_bytes": ("zkir_tpu_torch/csrc/poseidon2.cu",
+                        "zkir_tpu/ops/poseidon2.py:261"),
     # The jitted lax.scan of the reference interpreter (XLA, not Pallas),
     # and the reference's host loop of chunks around it.
     "interp_run": ("zkir_tpu_torch/csrc/interp.cu",
@@ -225,15 +230,21 @@ KERNELS = {
                       "zkir_tpu/ops/sha256.py:32"),
     "keccak_absorb": ("zkir_tpu_torch/csrc/crypto.cu",
                       "zkir_tpu/ops/keccak.py:30"),
-    "b3_chunks": ("zkir_tpu_torch/csrc/crypto.cu",
-                  "zkir_tpu/ops/blake3.py:107"),
+    "b3_rows": ("zkir_tpu_torch/csrc/crypto.cu",
+                "zkir_tpu/ops/blake3.py:107"),
     "b3_compress": ("zkir_tpu_torch/csrc/crypto.cu",
                     "zkir_tpu/ops/blake3.py:61"),
 }
-# The hash kernels serve the interpreter's crypto syscalls; no prove
-# launches them.
-CRYPTO_KERNELS = ("sha256_blocks", "keccak_absorb", "b3_chunks",
-                  "b3_compress")
+# The hash kernels serve the interpreter's crypto syscalls, each one launch
+# a service round; no prove launches them.
+CRYPTO_KERNELS = ("sha256_blocks", "p2_sponge_bytes", "keccak_absorb",
+                  "b3_rows")
+# Kernels of public entry points that no path launches any more:
+# p2_compress_level (one tree level; p2_merkle_tree builds a tree in one
+# launch), p2_permute (poseidon2_permute_batch) and b3_compress
+# (b3_compress_batch) since the service's Poseidon2 and BLAKE3 are one
+# launch of p2_sponge_bytes and of b3_rows.
+PATHLESS = ("p2_compress_level", "p2_permute", "b3_compress")
 # The quotient's plans: a feature set (lookup, aux, memory, io, crypto,
 # program) at a log_blowup.  The one-shot prover evaluates the quotient on
 # the whole LDE domain (FriConfig()'s log_blowup 2, every golden's); the
@@ -245,13 +256,11 @@ QUOTIENT_PLANS = {
     "range_lookup=False": ((False,) * 6, 2),
     "main path, one coset": ((True,) * 6, 0),
     "range_lookup, no program, one coset": ((True,) * 5 + (False,), 0)}
-# The kernels the interpret-and-prove path must launch; p2_permute belongs
-# to the interpreter's Poseidon2 syscalls, the hash kernels to its other
-# crypto syscalls, p2_sponge_absorb to the streaming prover, and
-# p2_compress_level (one tree level) to no path since p2_merkle_tree builds
-# each tree in one launch.
+# The kernels the interpret-and-prove path must launch; the hash kernels
+# belong to the interpreter's crypto syscalls and p2_sponge_absorb to the
+# streaming prover.
 MAIN_PATH_KERNELS = [k for k in KERNELS if k not in (
-    "p2_permute", "p2_compress_level", "p2_sponge_absorb", *CRYPTO_KERNELS)]
+    "p2_sponge_absorb", *CRYPTO_KERNELS, *PATHLESS)]
 PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
 # The kernels a streaming prove must launch.
 STREAMING_KERNELS = PROVER_KERNELS + ["p2_sponge_absorb"]
@@ -710,22 +719,15 @@ def phase_trees(results, gen) -> None:
     leaves, and against the per-level loop (``p2_compress_level``, a launch
     a level, the tree as the port built it before ``p2_merkle_tree``);
     both timed at 2^18, 2^17, 2^12, 2^6 and 2 leaves, the launch alone
-    and with its wrapper, beside the bound and the latency floor (the
-    levels times one permutation's latency, a one-state ``p2_permute``
-    launch alone).  A narrow level's own latency (4 lanes a node) is the
-    slope of the one-CTA trees from 2 to 2^6 leaves."""
+    and with its wrapper, beside the bound and the latency floor: the
+    levels times a narrow level's own latency (4 lanes a node, a
+    permutation in the kernel's chain), the slope of the one-CTA trees
+    from 2 to 2^6 leaves, so that a launch's own cost cancels."""
     import torch
 
     from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.ops import merkle
     from zkir_tpu_torch.ops import poseidon2 as p2
-
-    one = words(gen, (1, 16))
-    one_out = torch.empty_like(one)
-    latency = cuda_ms(lambda: _kernels.launch(
-        "p2_permute", one.data_ptr(), one_out.data_ptr(), 1), 500)
-    log(f"one permutation's latency (a one-state p2_permute launch alone): "
-        f"{latency:.4f} ms")
 
     def per_level(leaves):
         levels = [leaves]
@@ -762,8 +764,7 @@ def phase_trees(results, gen) -> None:
             "per_level_ms": cuda_ms(lambda: per_level(leaves), iters),
             "per_level_launches": log_n,
             "plain_ms": cuda_ms(lambda: merkle.build_tree_plain(leaves), 3),
-            "latency_floor_ms": log_n * latency,
-            "max_abs_err": 0, "library_ms": None,
+            "levels": log_n, "max_abs_err": 0, "library_ms": None,
             # Leaves read once, every level written once; a permutation a
             # node.
             **bound(8 * 8 * (2 * n - 1), P2_INSTR_PER_PERMUTATION * (n - 1))}
@@ -775,15 +776,18 @@ def phase_trees(results, gen) -> None:
             f"({log_n} launches) {timed['per_level_launches_ms']:.4f} ms "
             f"alone, {timed['per_level_ms']:.4f} ms with its wrappers; "
             f"plain {timed['plain_ms']:.4f} ms; bound "
-            f"{timed['bound_ms']:.4f} ms by {timed['bound_by']}, latency "
-            f"floor {timed['latency_floor_ms']:.4f} ms")
+            f"{timed['bound_ms']:.4f} ms by {timed['bound_by']}")
         del nodes, outs, ins
     lane_level = (results["p2_merkle_tree [2^6]"]["launch_ms"]
                   - results["p2_merkle_tree [2^1]"]["launch_ms"]) / 5
-    results["p2_merkle_tree"].update(permutation_latency_ms=latency,
-                                     narrow_level_ms=lane_level)
+    results["p2_merkle_tree"]["narrow_level_ms"] = lane_level
+    floors = {}
+    for key, r in results.items():
+        if key.startswith("p2_merkle_tree"):
+            r["latency_floor_ms"] = floors[key] = r["levels"] * lane_level
     log(f"p2_merkle_tree: a narrow level (4 lanes a node) takes "
-        f"{lane_level:.4f} ms, one thread's permutation {latency:.4f} ms")
+        f"{lane_level:.4f} ms; latency floors (levels times that) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
 
 
 def interp_flat(state, trace, valid_only=True):
@@ -1174,8 +1178,8 @@ def phase_interp(results) -> dict:
         f"({cycles} cycles, {time.perf_counter() - t0:.1f} s)")
 
     # (b) memory, I/O and a Poseidon2 syscall on 1,024 lanes, through the
-    # entry point a user calls: the path that owns p2_permute (the
-    # Poseidon2 syscalls of all lanes, batched).
+    # entry point a user calls: the Poseidon2 syscalls of all lanes in one
+    # p2_sponge_bytes launch a service round, and no p2_permute.
     lanes = 1024
     rng = np.random.default_rng(SEED)
     tapes = [[int(v) for v in rng.integers(0, 1 << 40, size=9)]
@@ -1185,7 +1189,8 @@ def phase_interp(results) -> dict:
     cycles, result, launches = interp_both("interp 1,024 lanes", interp,
                                            tapes)
     stats["syscall_path_launches"] = launches
-    if not launches.get("p2_permute") or not launches.get("interp_run"):
+    if not launches.get("p2_sponge_bytes") or not launches.get("interp_run") \
+            or launches.get("p2_permute"):
         raise AssertionError(f"the syscall path launched {launches}")
     if set(result["halted"].tolist()) != {2} \
             or any(len(o) != 9 for o in result["outputs"]) \
@@ -1449,20 +1454,36 @@ def crypto_instructions() -> dict:
     return out
 
 
+def p2_instructions() -> dict:
+    """Instructions of one Poseidon2 permutation in this build of
+    ``csrc/poseidon2.cu`` (a SASS probe): one thread's (``one``) and four
+    lanes' together (``four``)."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.tools.sass_count import p2_instructions as count
+
+    out = count(_kernels._nvcc(), _kernels.CSRC, _kernels.BUILD / "probe")
+    log(f"poseidon2.cu SASS: instructions a permutation {out}")
+    return out
+
+
 def phase_crypto(results) -> dict:
-    """The batched hashes (``csrc/crypto.cu``): (a) each kernel against its
-    plain version, exact, at the syscall path's shapes (SHA-256 over
-    65,536 messages of 200 bytes and its witness over 65,536 blocks,
-    Keccak over 65,536 x 300 bytes, BLAKE3's chunks and a tree level of
-    65,536 x 1,025 bytes, and whole BLAKE3 digests of those and of 4,096
-    x 3,000 bytes), timed beside the bound (bytes, or this build's SASS
-    instructions a compression times the compressions), and the known
-    answers (hashlib, the host oracles, Keccak("abc")); (b)
+    """The batched hashes (``csrc/crypto.cu``, and ``p2_sponge_bytes`` of
+    ``csrc/poseidon2.cu``): (a) each kernel against its plain version,
+    exact, at the syscall path's shapes (SHA-256 over 65,536 messages of
+    200 bytes and its witness over 65,536 blocks, Keccak over 65,536 x 300
+    bytes, whole BLAKE3 messages of 65,536 x 1,025 and 4,096 x 3,000 bytes
+    and of 33 to 129 chunks (also against the host oracle), a BLAKE3
+    compression of 65,536 parents, the Poseidon2 sponge over 16,384 rows
+    of the run's lengths and 4,096 x 3,000 bytes), timed beside the bound
+    (bytes, or this build's SASS instructions a compression or permutation
+    times their count; for the sponge also the latency floor), and the
+    known answers (hashlib, the host oracles, Keccak("abc")); (b)
     ``crypto_lanes_program`` on 65,536 lanes at the reference
     benchmark's shape through ``TpuInterpreter.run``: every lane's outputs
     against the host recomputation, 8 lanes against the oracle VM, each
-    service round's seconds and launches (at most one launch of each hash
-    kernel a round, BLAKE3's tree levels aside)."""
+    service round's seconds and launches (exactly one launch of each of
+    ``CRYPTO_KERNELS`` a round, none of ``p2_permute`` or
+    ``b3_compress``)."""
     import hashlib
 
     import numpy as np
@@ -1471,6 +1492,7 @@ def phase_crypto(results) -> dict:
     from zkir_tpu_torch import _kernels
     from zkir_tpu_torch.interp import HALT_EXIT, InterpConfig, TpuInterpreter
     from zkir_tpu_torch.ops import blake3, keccak, sha256
+    from zkir_tpu_torch.ops import poseidon2 as p2
     from zkir_tpu_torch.runtime import VM, VMConfig
     from zkir_tpu_torch.runtime.crypto import blake3_digest, keccak256_digest
 
@@ -1532,22 +1554,49 @@ def phase_crypto(results) -> dict:
     results["keccak_absorb"]["shape"] = "65,536 messages x 300 bytes"
     alone["keccak_absorb"] = device_ms(
         lambda: keccak.keccak_rows(data, offs, lens), 20)
-    # BLAKE3: 65,536 x 1,025 bytes: 131,072 chunks (16 blocks and 1), one
-    # tree level of 65,536 roots.
-    data, (offs, lens) = rand_bytes(n * 1025), rows(n, 1025)
-    c_off = np.stack([offs, offs + 1024], 1).reshape(-1)
-    c_len = np.tile([1024, 1], n)
-    ctr = np.tile([0, 1], n)
-    flags = np.zeros(2 * n, dtype=np.int64)
-    compare("b3_chunks",
-            lambda: blake3.b3_chunks(data, c_off, c_len, ctr, flags),
-            lambda: blake3.b3_chunks_plain(data, c_off, c_len, ctr, flags),
-            20, results, plain_iters=1, n_bytes=n * 1025 + 2 * n * (32 + 64),
-            n_ops=17 * n * instr["b3_compress"])
-    results["b3_chunks"]["shape"] = "131,072 chunks of 65,536 x 1,025 bytes"
-    alone["b3_chunks"] = device_ms(
-        lambda: blake3.b3_chunks(data, c_off, c_len, ctr, flags), 20)
-    cvs = blake3.b3_chunks(data, c_off, c_len, ctr, flags).reshape(n, 16)
+    # BLAKE3, whole messages in one b3_rows launch: 65,536 x 1,025 bytes
+    # (two chunks each), 4,096 x 3,000 (three), and messages of 33, 63, 65
+    # and 129 chunks among short ones (trees of 2, 3 and 5 batches of 32
+    # chunks), against the plain version (the chunk loop and the level
+    # loop), the long ones also against the host oracle.  Bound: bytes,
+    # or this build's instructions a compression times the compressions.
+    def b3_ops(lengths):
+        lengths = np.asarray(lengths)
+        chunks = np.maximum(1, -(-lengths // 1024))
+        last = lengths - 1024 * (chunks - 1)
+        blocks = 16 * (chunks - 1) + np.maximum(1, -(-last // 64))
+        return int((blocks + chunks - 1).sum()) * instr["b3_compress"]
+
+    for key, n_msg, width in (("b3_rows", n, 1025),
+                              ("b3_rows [4096 x 3000]", 4096, 3000)):
+        data, (offs, lens) = rand_bytes(n_msg * width), rows(n_msg, width)
+        compare(key, lambda: blake3.blake3_rows(data, offs, lens),
+                lambda: blake3.blake3_rows_plain(data, offs, lens), 20,
+                results, plain_iters=1, n_bytes=n_msg * (width + 32 + 64),
+                n_ops=b3_ops(lens))
+        results[key]["shape"] = f"{n_msg:,} messages x {width:,} bytes"
+        alone[key] = device_ms(
+            lambda: blake3.blake3_rows(data, offs, lens), 20)
+    big = [33 * 1024, 63 * 1024 - 5, 64 * 1024 + 1, 129 * 1024 - 777]
+    lens = np.array(big + [0, 1, 64, 1025, 3000] * 40 + big[::-1])
+    offs = np.cumsum(lens) - lens + np.arange(lens.size) % 3
+    data = rand_bytes(int((offs + lens).max()))
+    compare("b3_rows [33, 63, 65, 129 chunks]",
+            lambda: blake3.blake3_rows(data, offs, lens),
+            lambda: blake3.blake3_rows_plain(data, offs, lens), 5, results,
+            plain_iters=1, n_bytes=int(lens.sum()) + lens.size * 96,
+            n_ops=b3_ops(lens))
+    blob = data.cpu().numpy().tobytes()
+    got = blake3.blake3_rows(data, offs, lens).cpu().numpy()
+    for i in range(len(big)):
+        if got[i].astype("<u4").tobytes() != blake3_digest(
+                blob[offs[i]:offs[i] + lens[i]]):
+            raise AssertionError(f"b3_rows differs from blake3_digest on "
+                                 f"{lens[i]} bytes")
+    log(f"b3_rows: equal to blake3_digest on {big} bytes")
+    # b3_compress_batch, the reference's public compression: 65,536
+    # parents of two chunks each.
+    cvs = torch.randint(0, 1 << 32, (n, 16), generator=gen, device="cuda")
     level = [torch.zeros(n, dtype=torch.int64, device="cuda"),
              torch.zeros(n, dtype=torch.int64, device="cuda"),
              torch.full((n,), 64, dtype=torch.int64, device="cuda"),
@@ -1557,39 +1606,76 @@ def phase_crypto(results) -> dict:
             lambda: blake3.b3_compress_plain(None, cvs, *level), 20, results,
             plain_iters=1, n_bytes=n * (128 + 32 + 64),
             n_ops=n * instr["b3_compress"])
-    results["b3_compress"]["shape"] = "65,536 roots of 2 chunks"
+    results["b3_compress"]["shape"] = "65,536 parents of 2 chunks"
     alone["b3_compress"] = device_ms(
         lambda: blake3.b3_compress_batch(None, cvs, *level), 20)
-    compare("blake3_rows [65536 x 1025]",
-            lambda: blake3.blake3_rows(data, offs, lens),
-            lambda: blake3.blake3_rows_plain(data, offs, lens), 20, results,
-            plain_iters=1, n_bytes=n * (1025 + 16 + 64),
-            n_ops=18 * n * instr["b3_compress"])
-    results["blake3_rows [65536 x 1025]"]["device_ms_all"] = device_ms(
-        lambda: blake3.blake3_rows(data, offs, lens), 20)["all"]
-    m = 4096
-    data, (offs, lens) = rand_bytes(m * 3000), rows(m, 3000)
-    compare("blake3_rows [4096 x 3000]",
-            lambda: blake3.blake3_rows(data, offs, lens),
-            lambda: blake3.blake3_rows_plain(data, offs, lens), 20, results,
-            plain_iters=1, n_bytes=m * (3000 + 16 + 64),
-            n_ops=(47 + 2) * m * instr["b3_compress"])
-    results["blake3_rows [4096 x 3000]"]["device_ms_all"] = device_ms(
-        lambda: blake3.blake3_rows(data, offs, lens), 20)["all"]
     del data, cvs, level
+    # The Poseidon2 syscall sponge in one p2_sponge_bytes launch: 16,384
+    # rows with lengths drawn from CRYPTO_LENGTHS and 4,096 x 3,000 bytes,
+    # the rows at unaligned offsets, against the plain version (a batch of
+    # permute_plain a block position).  Bound: the larger of bytes, the
+    # blocks times the fewest instructions a permutation takes in this
+    # build (one thread's), and the latency floor: the longest row's blocks
+    # times one permutation's latency in the kernel's chain, the kernel
+    # alone on that row less the kernel alone on a row of one block, over
+    # the blocks between (a launch's own cost cancels).
+    stats["p2_instructions"] = p2_instructions()
+    rng = np.random.default_rng(SEED + 4)
+
+    def sponge_alone(data, offs, lens, iters):
+        times = device_ms(lambda: p2.sponge_hash_rows(data, offs, lens),
+                          iters)
+        return sum(v for k, v in times.items() if "sponge_bytes_kernel" in k)
+
+    for key, lens in (
+            ("p2_sponge_bytes", rng.choice(CRYPTO_LENGTHS, 16384)),
+            ("p2_sponge_bytes [4096 x 3000]", np.full(4096, 3000))):
+        offs = np.cumsum(lens) - lens + 2 * np.arange(lens.size) + 1
+        data = rand_bytes(int(offs[-1] + lens[-1]) + 1)
+        blocks = (lens + 3) // 4 // 8 + 1
+        compare(key, lambda: p2.sponge_hash_rows(data, offs, lens),
+                lambda: p2.sponge_hash_rows_plain(data, offs, lens), 20,
+                results, plain_iters=1,
+                n_bytes=int(lens.sum()) + lens.size * (24 + 64),
+                n_ops=int(blocks.sum()) * stats["p2_instructions"]["one"])
+        longest, most = int(np.argmax(lens)), int(blocks.max())
+        row = offs[longest:longest + 1]
+        longest_ms = sponge_alone(data, row, lens[longest:longest + 1], 50)
+        one_ms = sponge_alone(data, row, np.array([16]), 50)
+        latency = (longest_ms - one_ms) / (most - 1)
+        results[key].update(
+            shape=f"{lens.size:,} rows, {int(blocks.sum()):,} blocks, the "
+                  f"longest {most}",
+            longest_row_alone_ms=longest_ms, one_block_row_alone_ms=one_ms,
+            permutation_latency_ms=latency, latency_floor_ms=most * latency)
+        alone[key] = device_ms(
+            lambda: p2.sponge_hash_rows(data, offs, lens), 20)
+        del data
     # Each kernel alone on the device (torch.profiler), beside its wrapper.
-    for name, symbol in (("sha256_blocks", "sha256_kernel"),
-                         ("keccak_absorb", "keccak_kernel"),
-                         ("b3_chunks", "b3_chunks_kernel"),
-                         ("b3_compress", "b3_compress_kernel")):
+    for name, symbol in (
+            ("sha256_blocks", "sha256_kernel"),
+            ("keccak_absorb", "keccak_kernel"),
+            ("b3_rows", "b3_rows_kernel"),
+            ("b3_rows [4096 x 3000]", "b3_rows_kernel"),
+            ("b3_compress", "b3_compress_kernel"),
+            ("p2_sponge_bytes", "sponge_bytes_kernel"),
+            ("p2_sponge_bytes [4096 x 3000]", "sponge_bytes_kernel")):
         r = results[name]
         r["kernel_alone_ms"] = sum(v for k, v in alone[name].items()
                                    if symbol in k)
         r["device_ms_all"] = alone[name]["all"]
+        bound = max(r["bound_ms"], r.get("latency_floor_ms", 0.0))
         log(f"{name}: the kernel alone {r['kernel_alone_ms']:.4f} ms on the "
-            f"device ({100 * r['bound_ms'] / r['kernel_alone_ms']:.1f}% of "
-            f"its bound), every kernel of the call {r['device_ms_all']:.4f} "
-            f"ms, the wrapper {r['ms']:.4f} ms")
+            f"device ({100 * bound / r['kernel_alone_ms']:.1f}% of its "
+            f"bound {bound:.4f} ms), every kernel of the call "
+            f"{r['device_ms_all']:.4f} ms, the wrapper {r['ms']:.4f} ms"
+            + (f"; {r['bound_by']} {r['bound_ms']:.4f} ms, latency floor "
+               f"{r['latency_floor_ms']:.4f} ms "
+               f"({r['permutation_latency_ms']:.6f} ms a permutation: the "
+               f"longest row alone "
+               f"{r['longest_row_alone_ms']:.4f} ms, a one-block row "
+               f"{r['one_block_row_alone_ms']:.4f} ms)"
+               if "latency_floor_ms" in r else ""))
     # Known answers: the reference tests' vectors against hashlib and the
     # host oracles, Keccak("abc"), and single compressions against their
     # plain versions from given states.
@@ -1637,13 +1723,12 @@ def phase_crypto(results) -> dict:
     for i, r in enumerate(rounds):
         log(f"crypto service round {i}: {r['lanes']} lanes in "
             f"{r['s']:.4f} s, launches {r['launches']}")
-    new = ("sha256_blocks", "keccak_absorb", "b3_chunks", "b3_compress")
-    if any(not launches.get(k) for k in new):
-        raise AssertionError(f"the crypto run launched {launches}")
-    levels = int(np.ceil(np.log2(-(-max(CRYPTO_LENGTHS) // 1024))))
+    # Each round services lanes of every kind: one launch of each hash
+    # kernel, and nothing of the replaced paths.
     for r in rounds:
-        if any(r["launches"].get(k, 0) > 1 for k in new[:3]) \
-                or r["launches"].get("b3_compress", 0) > levels:
+        if any(r["launches"].get(k) != 1 for k in CRYPTO_KERNELS) \
+                or r["launches"].get("p2_permute") \
+                or r["launches"].get("b3_compress"):
             raise AssertionError(f"a service round launched {r}")
     if set(result["halted"].tolist()) != {HALT_EXIT}:
         raise AssertionError("the crypto lanes did not all exit")
@@ -1681,14 +1766,6 @@ MESH_BUDGET_S = 90
 MESH_GLOO_RANKS = 4
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _mesh_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     """One gloo rank of (b), on ``cuda:0`` with the others: the entry
     points at (b)'s shapes, each gathered and held against the
@@ -1703,9 +1780,8 @@ def _mesh_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     from zkir_tpu_torch import parallel as par
     from zkir_tpu_torch.tools import mesh_bench as mb
 
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=60))
+    par.join_local_group(port, rank, world, "gloo",
+                         timeout=datetime.timedelta(seconds=60))
     try:
         mesh = par.make_mesh(world, device="cuda", backend="gloo")
         calls, single = mb.setup(mesh, mb.SHAPES["gloo"])
@@ -1792,8 +1868,8 @@ def phase_mesh(results, floor=None) -> dict:
               "prove_step_sharded": "65536 lanes x 512, log_n 24"}
 
     # (a) A world of one NCCL rank, at full width.
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1,
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
                             timeout=datetime.timedelta(seconds=120))
     try:
         mesh = par.make_mesh(1)
@@ -1845,8 +1921,9 @@ def phase_mesh(results, floor=None) -> dict:
     # (b) 4 gloo ranks sharing cuda:0, spawned here.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        store = par.rendezvous_store()   # held until the ranks end
         ctx = mp.start_processes(
-            _mesh_rank, args=(MESH_GLOO_RANKS, free_port(), tmp),
+            _mesh_rank, args=(MESH_GLOO_RANKS, store.port, tmp),
             nprocs=MESH_GLOO_RANKS, join=False, start_method="spawn")
         deadline = t_phase + MESH_BUDGET_S
         try:
@@ -3116,9 +3193,8 @@ def _mesh_prove_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     from zkir_tpu_torch.prover import prove_trace
     from zkir_tpu_torch.prover.streaming import prove_trace_streaming
 
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+    par.join_local_group(port, rank, world, "gloo",
+                         timeout=datetime.timedelta(seconds=120))
     try:
         mesh = par.make_mesh(world, device="cuda", backend="gloo")
         seconds = {}
@@ -3158,7 +3234,8 @@ def phase_mesh_prove(main_path) -> dict:
     proof, no plain version on a card tensor, and each warm prove's
     launches by kernel equal to the single-device warm prove's (timed in
     turns: one device, mesh, mesh, one device), with the peak device
-    memory.  (b) 4 gloo ranks sharing ``cuda:0``, spawned here: goldens B
+    memory; the first prove on the mesh builds as many trees as a warm
+    one (the aux table's tree cached for the card whatever its name).  (b) 4 gloo ranks sharing ``cuda:0``, spawned here: goldens B
     and E one-shot and C by streaming with ``col_block=6``, each rank's
     proof equal to the stored reference proof.  (c) The CLI in fresh
     processes: ``prove --bind --mesh 1`` writes golden D as ``prove
@@ -3181,8 +3258,8 @@ def phase_mesh_prove(main_path) -> dict:
     stats = {}
 
     # (a) A world of one NCCL rank, at full width.
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1,
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
                             timeout=datetime.timedelta(seconds=120))
     try:
         mesh = par.make_mesh(1)
@@ -3222,6 +3299,14 @@ def phase_mesh_prove(main_path) -> dict:
                 raise AssertionError(f"{path}: launches on a mesh of one "
                                      f"rank {warm['mesh']}, on one device "
                                      f"{warm['device']}")
+            # The aux table's tree is cached by the card with its index, so
+            # the first prove on the mesh (device cuda:0) reuses the one
+            # the single-device proves (device cuda) built.
+            if first["p2_merkle_tree"] != warm["device"][0]["p2_merkle_tree"]:
+                raise AssertionError(
+                    f"{path}: the first prove on the mesh built "
+                    f"{first['p2_merkle_tree']} trees, a warm prove "
+                    f"{warm['device'][0]['p2_merkle_tree']}")
             stats[path] = {
                 "first_launches": first, "first_s": first_s,
                 "warm_launches": warm["mesh"][0],
@@ -3247,8 +3332,9 @@ def phase_mesh_prove(main_path) -> dict:
     # (b) 4 gloo ranks sharing cuda:0, spawned here.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        store = par.rendezvous_store()   # held until the ranks end
         ctx = mp.start_processes(
-            _mesh_prove_rank, args=(MESH_GLOO_RANKS, free_port(), tmp),
+            _mesh_prove_rank, args=(MESH_GLOO_RANKS, store.port, tmp),
             nprocs=MESH_GLOO_RANKS, join=False, start_method="spawn")
         deadline = t0 + MESH_PROVE_BUDGET_S / 2
         try:
@@ -3447,10 +3533,9 @@ def main() -> int:
                              f"{quotient_stats['compiled']} in the build")
 
     # launches: the path that owns the kernel (interpret and prove with
-    # range_lookup=True and the program bound; for p2_permute the
-    # interpreter's Poseidon2 syscalls; for the hash kernels the crypto
-    # phase's 65,536-lane run; for p2_sponge_absorb the 2^16 streaming
-    # prove); launches_plain_path: the range_lookup=False
+    # range_lookup=True and the program bound; for the hash kernels the
+    # crypto phase's 65,536-lane run; for p2_sponge_absorb the 2^16
+    # streaming prove; 0 for PATHLESS); launches_plain_path: the range_lookup=False
     # prove; launches_streaming_path: the 2^16 streaming prove;
     # launches_deferred_path: the deferred model's 2^16 trace interpreted
     # and proved with its program bound; launches_mesh_path: the mesh
@@ -3463,16 +3548,20 @@ def main() -> int:
     # beside the plain build's in the same call.
     extra = {"interp_run": {
         f"{k}_2e16_{model}": deferred_stats[f"interp_run_2e16_{model}"][k]
-        for model in ("deferred", "plain") for k in ("ms", "bound_ms")}}
+        for model in ("deferred", "plain") for k in ("ms", "bound_ms")},
+        # The chains of the sponge and the tree: a kernel's bound is the
+        # larger of bound_ms and latency_floor_ms.
+        "p2_sponge_bytes": {k: results["p2_sponge_bytes"][k] for k in (
+            "latency_floor_ms", "permutation_latency_ms")},
+        "p2_merkle_tree": {k: results["p2_merkle_tree"][k] for k in (
+            "latency_floor_ms", "narrow_level_ms")}}
     main_path = dict(stats["prove_2e16_bound"]["launches"],
-                     p2_permute=interp_stats["syscall_path_launches"]
-                     ["p2_permute"],
                      p2_sponge_absorb=streamed["p2_sponge_absorb"],
                      **{k: crypto_stats["launches"][k]
                         for k in CRYPTO_KERNELS})
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
-                "launches": main_path[name],
+                "launches": main_path.get(name, 0),
                 "launches_plain_path":
                     stats["prove_2e16"]["launches"][name],
                 "launches_streaming_path": streamed[name],
@@ -3486,10 +3575,9 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}, **extra.get(name, {})}
                for name, (src, replaces) in KERNELS.items()]
-    # p2_compress_level builds one level; no path of the port launches it
-    # since p2_merkle_tree builds each tree in one launch (0 above).
+    # PATHLESS: no path of the port launches them any more (0 above).
     if any(not k["launches"] for k in kernels
-           if k["name"] != "p2_compress_level"):
+           if k["name"] not in PATHLESS):
         raise AssertionError(f"a kernel was launched by no path: {kernels}")
     more = {k: v for k, v in results.items() if k not in KERNELS}
     print(json.dumps({**stats, "more_kernel_cases": more, "card": card}))

@@ -1,8 +1,10 @@
 """The port's batched hashes (``zkir_tpu_torch.ops.sha256``, ``keccak``,
-``blake3``) against the JAX package's on the CPU, word for word.
+``blake3``, and ``poseidon2.sponge_hash_rows``, the Poseidon2 syscalls')
+against the JAX package's on the CPU, word for word.
 
 On the CPU each port function runs the plain torch version of its kernel
-(``csrc/crypto.cu``); the reference runs its jitted batch functions.  The
+(``csrc/crypto.cu``, ``csrc/poseidon2.cu``); the reference runs its
+jitted batch functions, and its scalar ``poseidon2_sponge_hash_bytes``.  The
 inputs are the reference tests' vectors (``tests/test_sha256_kernel.py``,
 ``tests/test_crypto_kernels_batch.py``) and messages, blocks and states
 made with ``numpy.random.default_rng``.  Each JAX function runs once per
@@ -19,7 +21,9 @@ import torch
 from zkir_tpu.ops import blake3 as ref_b3
 from zkir_tpu.ops import keccak as ref_keccak
 from zkir_tpu.ops import sha256 as ref_sha
+from zkir_tpu.ops.poseidon2_ref import poseidon2_sponge_hash_bytes
 from zkir_tpu_torch.ops import blake3, byte_rows, keccak, sha256
+from zkir_tpu_torch.ops import poseidon2 as p2
 
 SEED = 20261018
 
@@ -48,7 +52,7 @@ SHA_VECTORS = [b"", b"abc", b"hello", b"a" * 55, b"a" * 56, b"a" * 64,
 KECCAK_VECTORS = [b"", b"abc", b"hello", b"x" * 135, b"x" * 136, b"x" * 137,
                   b"y" * 300]
 BLAKE3_VECTORS = [b"", b"abc", _pat(63), _pat(64), _pat(65), _pat(1023),
-                  _pat(1024), _pat(1025), _pat(3000)]
+                  _pat(1024), _pat(1025), _pat(3000), _pat(33 * 1024)]
 MESSAGES = {
     "sha256": {"vectors": SHA_VECTORS, "seeded": _seeded(SEED, 32, 300)},
     "keccak": {"vectors": KECCAK_VECTORS, "seeded": _seeded(SEED + 1, 16, 300)},
@@ -215,3 +219,52 @@ def test_rows_outside_the_buffer_are_refused():
             byte_rows.check(data, offsets, lengths)
     with pytest.raises(ValueError, match="uint8"):
         byte_rows.check(data.to(torch.int64), [0], [1])
+
+
+# ============================================================================
+# The Poseidon2 syscall sponge: rows of bytes against the scalar reference
+# ============================================================================
+
+
+def _p2_groups():
+    """Each group's (data, offsets, lengths): seeded messages of the
+    lengths around a word and a rate block; words at and above p (p
+    itself, 2^31, 2^32 - 2 = 2p, 2^32 - 1, and a short last word of ones);
+    rows of one buffer at odd offsets, overlapping; seeded messages."""
+    rng = np.random.default_rng(SEED + 7)
+    lengths = [bytes(rng.integers(0, 256, size=n, dtype=np.uint8))
+               for n in (0, 1, 3, 4, 31, 32, 33, 64, 3000)]
+    top = [bytes.fromhex(h) for h in (
+        "ffffff7f", "00000080", "feffffff", "ffffffff", "ffffffffff",
+        "ffffff7f" * 9 + "00000080" * 7 + "ffffffff")]
+    buf = rng.integers(0, 256, size=4096, dtype=np.uint8)
+    offsets = np.array([1, 3, 5, 7, 1001, 1001, 4095, 2047, 9])
+    spans = np.array([33, 64, 3000, 31, 100, 1, 1, 2049, 0])
+    return {
+        "lengths": byte_rows.pack(lengths, "cpu"),
+        "words at and above p": byte_rows.pack(top, "cpu"),
+        "odd offsets, overlapping": (torch.from_numpy(buf), offsets, spans),
+        "seeded": byte_rows.pack(_seeded(SEED + 8, 16, 3000), "cpu"),
+    }
+
+
+@pytest.fixture(scope="module")
+def p2_rows():
+    """Each group's digests by the port and by the reference."""
+    out = {}
+    for group, (data, offsets, lengths) in _p2_groups().items():
+        blob = data.numpy().tobytes()
+        ref = [poseidon2_sponge_hash_bytes(blob[o:o + n])
+               for o, n in zip(offsets, lengths)]
+        port = p2.sponge_hash_rows(data, offsets, lengths)
+        assert port.dtype == torch.int64 and tuple(port.shape) == (
+            len(ref), 8)
+        out[group] = port.tolist(), ref
+    return out
+
+
+@pytest.mark.parametrize("group", ["lengths", "words at and above p",
+                                   "odd offsets, overlapping", "seeded"])
+def test_poseidon2_syscall_digests_equal_the_reference(p2_rows, group):
+    port, ref = p2_rows[group]
+    assert port == ref

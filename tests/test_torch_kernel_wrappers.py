@@ -286,13 +286,14 @@ def test_every_entry_point_has_its_c_function():
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert set(_kernels._SIGNATURES) <= defined
     assert set(_kernels.launches) == {*_kernels._SIGNATURES, "quotient_part"}
-    assert len(_kernels._SIGNATURES) == 14
+    assert len(_kernels._SIGNATURES) == 15
 
 
 def _crypto_calls():
     """Each hash kernel's wrapper on CPU tensors, and its plain version
     on the same inputs."""
     from zkir_tpu_torch.ops import blake3, keccak, sha256
+    from zkir_tpu_torch.ops import poseidon2 as p2
 
     rng = np.random.default_rng(9)
     data = torch.from_numpy(rng.integers(0, 256, 2000, dtype=np.uint8))
@@ -305,10 +306,11 @@ def _crypto_calls():
                               data, offs, lens)[0]),
         "keccak_absorb": (lambda: keccak.keccak_rows(data, offs, lens),
                           lambda: keccak.keccak_rows_plain(data, offs, lens)),
-        "b3_chunks": (lambda: blake3.b3_chunks(data, offs, lens // 2, offs,
-                                               lens % 9),
-                      lambda: blake3.b3_chunks_plain(data, offs, lens // 2,
-                                                     offs, lens % 9)),
+        "b3_rows": (lambda: blake3.blake3_rows(data, offs, lens),
+                    lambda: blake3.blake3_rows_plain(data, offs, lens)),
+        "p2_sponge_bytes": (lambda: p2.sponge_hash_rows(data, offs, lens),
+                            lambda: p2.sponge_hash_rows_plain(data, offs,
+                                                              lens)),
         "b3_compress": (lambda: blake3.b3_compress_batch(None, words,
                                                          *small),
                         lambda: blake3.b3_compress_plain(None, words,
@@ -317,7 +319,8 @@ def _crypto_calls():
 
 
 @pytest.mark.parametrize("name", ["sha256_blocks", "keccak_absorb",
-                                  "b3_chunks", "b3_compress"])
+                                  "b3_rows", "b3_compress",
+                                  "p2_sponge_bytes"])
 def test_crypto_entry_point_takes_its_plain_version_on_the_cpu(name):
     """A hash kernel's wrapper, given CPU tensors, returns its plain
     version's words and counts no launch; the count exists for the card."""

@@ -79,7 +79,7 @@ def test_port_needs_no_jax():
 
 
 PARALLEL_SCRIPT = r"""
-import contextlib, io, json, pathlib, socket, sys
+import contextlib, io, json, pathlib, sys
 sys.modules["jax"] = None
 sys.modules["zkir_tpu"] = None
 import numpy as np
@@ -94,10 +94,7 @@ from zkir_tpu_torch.parallel import (dist_merkle_root, dist_ntt_natural,
 import zkir_tpu_torch.cli
 from zkir_tpu_torch.convert import proof_to_json
 from zkir_tpu_torch.prover import FriConfig, prove_trace
-s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
-s.close()
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=0, world_size=1)
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
 mesh = make_mesh(device="cpu")
 gen = torch.Generator().manual_seed(7)
 re, im = (torch.randint(0, (1 << 31) - 1, (1 << 10,), generator=gen)

@@ -14,7 +14,7 @@ two, a domain too small for the mesh, more ranks than the world has,
 
 import dataclasses
 import pathlib
-import socket
+import re
 import time
 
 import numpy as np
@@ -146,26 +146,26 @@ def _run_cases(mesh, names, inputs):
 
 def _rank_main(rank, world, port, inputs, out_dir):
     torch.set_num_threads(1)
-    address = f"localhost:{port}"
     if world == 2:
-        par.initialize_multihost(address, world, rank, device="cpu")
+        # initialize_multihost as a user calls it, rank 0 hosting the store
+        # at the address: rank 0 binds its port first, in a store of its
+        # own that its group's store then shares (multi_tenant), and hands
+        # the address over through the parent's store.
+        parent = dist.TCPStore("localhost", port, is_master=False)
+        if rank == 0:
+            own = dist.TCPStore("localhost", 0, is_master=True,
+                                wait_for_workers=False, multi_tenant=True)
+            parent.set("address", f"localhost:{own.port}")
+        par.initialize_multihost(parent.get("address").decode(), world,
+                                 rank, device="cpu")
     else:
-        dist.init_process_group("gloo", init_method=f"tcp://{address}",
-                                rank=rank, world_size=world)
+        par.join_local_group(port, rank, world, "gloo")
     try:
         mesh = par.make_mesh(world, device="cpu")
         torch.save(_run_cases(mesh, WORLD_CASES[world], inputs),
                    pathlib.Path(out_dir) / f"w{world}r{rank}.pt")
     finally:
         dist.destroy_process_group()
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 # The reference's cases in four groups of about equal cost, one process
@@ -283,16 +283,18 @@ def runs(tmp_path_factory):
     inputs = _inputs()
     n = torch.get_num_threads()
     torch.set_num_threads(2)
+    # Each world's store is held here until its ranks have finished.
+    stores = {world: par.rendezvous_store() for world in (4, 2)}
     contexts = [mp.start_processes(
-        _rank_main, args=(world, _free_port(), inputs, str(out_dir)),
+        _rank_main, args=(world, stores[world].port, inputs, str(out_dir)),
         nprocs=world, join=False, start_method="spawn") for world in (4, 2)]
     contexts.append(mp.start_processes(
         _reference_main, args=(inputs, str(out_dir)),
         nprocs=len(REFERENCE_GROUPS), join=False, start_method="spawn"))
     try:
         single = _single(inputs)
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:"
-                                f"{_free_port()}", rank=0, world_size=1)
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
         try:
             one = _run_cases(par.make_mesh(device="cpu"), WORLD_CASES[1],
                              inputs)
@@ -420,10 +422,32 @@ def test_domain_too_small(runs):
         assert "too small" in got["too small"]
 
 
+# Choosing a port by binding port 0, reading its number and closing the
+# socket, to bind it again later: any process can take the port in
+# between.  (The patterns are split so that this file does not match.)
+PORT_RACE = re.compile(r"getsock" r"name\(|free_" r"port\b|"
+                       r"\.bind\(\(\s*['\"][^'\"]*['\"]\s*,\s*0\s*\)\)")
+
+
+def test_no_port_is_chosen_before_it_is_bound():
+    """Every local rendezvous of the port, its tests and chip_smoke.py
+    goes through a store that holds its port from the moment the OS picks
+    it (``parallel.rendezvous_store``), or needs no socket
+    (``dist.HashStore``)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = [*sorted((root / "zkir_tpu_torch").rglob("*.py")),
+             *sorted((root / "tests").glob("test_torch_*.py")),
+             root / "chip_smoke.py"]
+    found = [f"{f.relative_to(root)}:{n}" for f in files
+             for n, line in enumerate(f.read_text().splitlines(), 1)
+             if PORT_RACE.search(line)]
+    assert not found, found
+
+
 @pytest.fixture
 def world_of_one():
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
-                            f"{_free_port()}", rank=0, world_size=1)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
     yield
     dist.destroy_process_group()
 

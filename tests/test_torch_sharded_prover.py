@@ -19,7 +19,6 @@ mesh on ``cuda`` without a GPU; and a rank that fails stops the others.
 import concurrent.futures
 import json
 import pathlib
-import socket
 import time
 
 import numpy as np
@@ -105,12 +104,6 @@ def _rank_cases(world: int, ckpt_dir: str, out_dir: str) -> None:
     torch.save(out, pathlib.Path(out_dir) / f"w{world}r{rank}.pt")
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Both spawns started together (a thread each waits on its ranks),
@@ -125,9 +118,8 @@ def ranks(tmp_path_factory):
                                   world, str(ckpt[world]), str(out_dir),
                                   device="cpu")
                       for world in (4, 2)]
-            dist.init_process_group(
-                "gloo", init_method=f"tcp://localhost:{_free_port()}",
-                rank=0, world_size=1)
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
             try:
                 _rank_cases(1, str(ckpt[1]), str(out_dir))
             finally:

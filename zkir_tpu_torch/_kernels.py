@@ -60,6 +60,8 @@ _SIGNATURES = {
     # host state (16 uint32), bits, start nonce, nonce limit, host nonce
     # (int64; the entry point synchronises)
     "p2_grind": (_P, _I, _N, _N, _P),
+    # data, offsets, lengths, output rows, digests, k
+    "p2_sponge_bytes": (_P, _P, _P, _P, _P, _N),
     # host descriptor (csrc/interp.cu's enum)
     "interp_run": (_P,),
     # data, offsets, lengths, states in (or null), states out, witness (or
@@ -67,8 +69,8 @@ _SIGNATURES = {
     "sha256_blocks": (_P, _P, _P, _P, _P, _P, _N, _I),
     # data, offsets, lengths, state in (or null), state out, n, pad
     "keccak_absorb": (_P, _P, _P, _P, _P, _N, _I),
-    # data, offsets, lengths, counters, last flags, chaining values, n
-    "b3_chunks": (_P, _P, _P, _P, _P, _P, _N),
+    # data, offsets, lengths, first lanes, output rows, digests, n, lanes
+    "b3_rows": (_P, _P, _P, _P, _P, _P, _N, _N),
     # cv (or null), words, counter lo, counter hi, block_len, flags, out, n
     "b3_compress": (_P, _P, _P, _P, _P, _P, _P, _N),
 }

@@ -10,12 +10,12 @@
 // The reference pads every message on the host and advances all streams
 // one block at a time, a masked `lax.scan` step a block (shorter messages
 // idle through the longest one's blocks), and merges each BLAKE3 tree in a
-// host loop of one-row compressions.  Here one thread owns one message (a
-// BLAKE3 chunk, or one compression): it reads its own bytes from
-// (data + offsets[i], lengths[i]), pads them itself as it goes, keeps the
-// whole state in registers through all its blocks, and stores the result
-// once.  So a message costs its own blocks, and nothing is staged in
-// device memory between blocks.
+// host loop of one-row compressions.  Here one thread owns one message
+// (SHA-256, Keccak, one BLAKE3 compression) or one BLAKE3 chunk: it reads
+// its own bytes from (data + offsets[i], lengths[i]), pads them itself as
+// it goes, keeps the whole state in registers through all its blocks, and
+// stores the result once.  So a message costs its own blocks, and nothing
+// is staged in device memory between blocks.
 //
 // Entry points (every array int64 unless said otherwise; data is bytes):
 //   sha256_blocks  one thread a message: its blocks from the state given
@@ -25,12 +25,16 @@
 //                  the rate of the state given (or zero), each followed by
 //                  keccak-f[1600], with the original Keccak padding
 //                  (0x01 ... 0x80) or whole blocks.
-//   b3_chunks      one thread a BLAKE3 chunk (<= 1024 bytes): its blocks
+//   b3_rows        whole BLAKE3 messages: a lane a chunk (its blocks
 //                  chained from the IV with CHUNK_START / CHUNK_END and the
-//                  64-bit chunk counter; `last_flags` adds ROOT to the last
-//                  block of a message that is one chunk.
-//   b3_compress    one compression a row: the parent levels of the trees,
-//                  and the reference's `b3_compress_batch`.
+//                  64-bit chunk counter), a message's lanes inside one
+//                  warp, its tree merged there by shuffles (PARENT, ROOT
+//                  on the last compression), one digest a message.  It
+//                  replaces the earlier path of a chunk kernel and a
+//                  b3_compress launch a tree level, with per-chunk arrays
+//                  and a numpy loop a level on the host.
+//   b3_compress    one compression a row: the reference's
+//                  `b3_compress_batch`.
 //
 // Bound on the H100: integer instructions.  A message moves its bytes once
 // (a few hundred bytes) and runs 64 rounds a 64-byte block (SHA-256), 24
@@ -48,12 +52,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bytes.cuh"
+
 #define SHA_BLOCK 64
 #define KECCAK_RATE 136
 #define B3_BLOCK 64
 #define B3_CHUNK 1024
 #define B3_CHUNK_START 1u
 #define B3_CHUNK_END 2u
+#define B3_PARENT 4u
+#define B3_ROOT 8u
 
 __constant__ uint32_t c_sha256_k[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
@@ -89,35 +97,6 @@ static inline unsigned crypto_grid(long long n, int threads) {
 
 __device__ __forceinline__ uint32_t rotr32(uint32_t x, int n) {
     return __funnelshift_r(x, x, n);
-}
-
-// N little-endian words from p on, p of any alignment: the aligned words
-// that hold those bytes, shifted together.  Every aligned word read holds
-// one of the 4 N bytes, so it lies inside the buffer (whose allocation is
-// at least 4-byte aligned).
-template <int N>
-__device__ __forceinline__ void load_le_words(const uint8_t* p, uint32_t* out) {
-    const uint32_t* w = (const uint32_t*)((uintptr_t)p & ~(uintptr_t)3);
-    const int s = (int)((uintptr_t)p & 3) * 8;
-    if (s == 0) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) out[j] = __ldg(w + j);
-        return;
-    }
-    uint32_t lo = __ldg(w);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-        const uint32_t hi = __ldg(w + j + 1);
-        out[j] = __funnelshift_r(lo, hi, s);
-        lo = hi;
-    }
-}
-
-// Byte p of a message of `len` bytes followed by its padding: `first`
-// right after the message, zeros beyond.
-__device__ __forceinline__ uint32_t msg_byte(const uint8_t* msg, long long p,
-                                             long long len, uint32_t first) {
-    return p < len ? (uint32_t)msg[p] : (p == len ? first : 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -351,44 +330,151 @@ __device__ __forceinline__ void b3_compress_words(uint32_t* cv, uint32_t* m,
     for (int k = 0; k < 8; ++k) cv[k] = v[k] ^ v[k + 8];
 }
 
-__global__ void b3_chunks_kernel(const uint8_t* __restrict__ data,
-                                 const int64_t* __restrict__ offsets,
-                                 const int64_t* __restrict__ lengths,
-                                 const int64_t* __restrict__ counters,
-                                 const int64_t* __restrict__ last_flags,
-                                 int64_t* __restrict__ out, long long n) {
-    const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    const long long len = lengths[t];
-    const uint8_t* msg = data + offsets[t];
-    const uint64_t counter = (uint64_t)counters[t];
-    uint32_t cv[8];
+// Chunk j of a message of `len` bytes at `msg` (len may be 0: one empty
+// block): its blocks chained from the IV with the chunk counter j,
+// CHUNK_START on the first block and CHUNK_END | `last_flags` on the last;
+// cv receives its chaining value.
+__device__ __forceinline__ void b3_chunk_cv(const uint8_t* msg, long long len,
+                                            uint64_t j, uint32_t last_flags,
+                                            uint32_t* cv) {
+    const uint8_t* chunk = msg + j * B3_CHUNK;
+    long long rest = len - (long long)j * B3_CHUNK;
+    rest = rest < B3_CHUNK ? rest : B3_CHUNK;
 #pragma unroll
     for (int k = 0; k < 8; ++k) cv[k] = c_iv[k];
-    // An empty chunk is one empty block.
-    const int blocks = len > 0 ? (int)((len + B3_BLOCK - 1) / B3_BLOCK) : 1;
+    const int blocks = rest > 0 ? (int)((rest + B3_BLOCK - 1) / B3_BLOCK) : 1;
     for (int b = 0; b < blocks; ++b) {
         const long long q = (long long)b * B3_BLOCK;
         uint32_t m[16];
-        if (q + B3_BLOCK <= len) {
-            load_le_words<16>(msg + q, m);
+        if (q + B3_BLOCK <= rest) {
+            load_le_words<16>(chunk + q, m);
         } else {
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int w = 0; w < 16; ++w) {
                 uint32_t x = 0;
 #pragma unroll
-                for (int k = 3; k >= 0; --k) x = (x << 8) | msg_byte(msg, q + 4 * j + k, len, 0u);
-                m[j] = x;
+                for (int k = 3; k >= 0; --k) x = (x << 8) | msg_byte(chunk, q + 4 * w + k, rest, 0u);
+                m[w] = x;
             }
         }
-        const long long rest = len - q;
-        const uint32_t block_len = (uint32_t)(rest < B3_BLOCK ? (rest > 0 ? rest : 0) : B3_BLOCK);
+        const long long left = rest - q;
+        const uint32_t block_len = (uint32_t)(left < B3_BLOCK ? (left > 0 ? left : 0) : B3_BLOCK);
         uint32_t flags = b == 0 ? B3_CHUNK_START : 0u;
-        if (b == blocks - 1) flags |= B3_CHUNK_END | (uint32_t)last_flags[t];
-        b3_compress_words(cv, m, counter, block_len, flags);
+        if (b == blocks - 1) flags |= B3_CHUNK_END | last_flags;
+        b3_compress_words(cv, m, j, block_len, flags);
     }
+}
+
+// cv <- the parent node of chaining values cv (left) and right.
+__device__ __forceinline__ void b3_parent(uint32_t* cv, const uint32_t* right,
+                                          uint32_t flags) {
+    uint32_t m[16];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) out[8 * t + k] = cv[k];
+    for (int k = 0; k < 8; ++k) {
+        m[k] = cv[k];
+        m[8 + k] = right[k];
+        cv[k] = c_iv[k];
+    }
+    b3_compress_words(cv, m, 0, B3_BLOCK, B3_PARENT | flags);
+}
+
+// Whole messages, each to its 8-word digest, in one launch.  A message of
+// c chunks (1,024 bytes each; an empty message is one chunk of one empty
+// block) owns a group of lanes of one warp: the next power of two >= c
+// lanes, or the whole warp where c > 32.  The host orders the messages by
+// group size, largest first (one-chunk messages by their blocks, most
+// first, so that a warp's lanes end together), and gives each its first
+// lane (`lanes`, in ascending order), so every group lies aligned inside
+// one warp; a lane finds its message by binary search.  Lane o of a group hashes chunk o
+// (of each batch of 32, for a message of more than 32 chunks), then the
+// group merges its chaining values in the warp: at each level node i sits
+// in lane i << level, and a left node takes its right neighbour by a
+// shuffle (nodes paired left to right, an odd last node carried up as it
+// is: BLAKE3's tree, as the reference's host loop builds it), PARENT on
+// each merge and ROOT on the message's last.  A message of more than 32
+// chunks merges each batch's root into a stack of subtree roots kept by
+// lane 0 in shared memory (BLAKE3's incremental chaining-value stack: a
+// batch root merges with the top while the count of batches so far is
+// even; the last batch's root merges with the whole stack, ROOT on the
+// last merge).  Digest i goes to row `rows[i]` of `out`.
+#define B3_WARPS 4
+// Subtree roots a warp's stack holds: one per bit of a message's count of
+// 32-chunk batches, so messages of up to 2^47 bytes.
+#define B3_STACK 32
+
+__global__ void __launch_bounds__(32 * B3_WARPS)
+b3_rows_kernel(const uint8_t* __restrict__ data,
+               const int64_t* __restrict__ offsets,
+               const int64_t* __restrict__ lengths,
+               const int64_t* __restrict__ lanes,
+               const int64_t* __restrict__ rows, int64_t* __restrict__ out,
+               long long n) {
+    __shared__ uint32_t stack[B3_WARPS][B3_STACK][8];
+    const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    // The last message whose first lane is t or before.
+    long long lo = 0, hi = n - 1;
+    while (lo < hi) {
+        const long long mid = (lo + hi + 1) / 2;
+        if (lanes[mid] <= t) lo = mid; else hi = mid - 1;
+    }
+    const long long len = lengths[lo];
+    const uint8_t* msg = data + offsets[lo];
+    const long long chunks = len > 0 ? (len + B3_CHUNK - 1) / B3_CHUNK : 1;
+    const int group = chunks >= 32 ? 32 : 1 << (32 - __clz((int)chunks - 1));
+    const long long o = t - lanes[lo];
+    const bool inside = o < group;   // lanes past the last group: none
+    const long long batches = (chunks + 31) / 32;
+    // Warp-uniform: a message of more than one batch owns its warp.
+    const long long all = __reduce_max_sync(0xffffffffu, inside ? (unsigned)batches : 1u);
+    uint32_t (*top)[8] = stack[threadIdx.x / 32];
+    int depth = 0;
+    uint32_t cv[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (long long batch = 0; batch < all; ++batch) {
+        const long long live = chunks - 32 * batch;   // this batch's chunks
+        const long long r = live < 32 ? live : 32;
+        if (inside && o < r)
+            b3_chunk_cv(msg, len, (uint64_t)(32 * batch + o), chunks == 1 ? B3_ROOT : 0u, cv);
+        // The batch's tree: r nodes at level 0, lane o holding node o.
+#pragma unroll
+        for (int level = 0; level < 5; ++level) {
+            const int step = 1 << level;
+            uint32_t right[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) right[k] = __shfl_down_sync(0xffffffffu, cv[k], step);
+            const long long m = (r + step - 1) >> level;   // nodes at this level
+            if (inside && (o & (2 * step - 1)) == 0 && (o >> level) + 1 < m)
+                b3_parent(cv, right, m == 2 && batches == 1 ? B3_ROOT : 0u);
+        }
+        if (batches == 1 || !inside || o != 0) continue;
+        if (batch + 1 < batches) {      // push the batch's root
+            for (long long done = batch + 1; (done & 1) == 0; done >>= 1) {
+                uint32_t left[8];
+                --depth;
+#pragma unroll
+                for (int k = 0; k < 8; ++k) left[k] = top[depth][k];
+                b3_parent(left, cv, 0u);
+#pragma unroll
+                for (int k = 0; k < 8; ++k) cv[k] = left[k];
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) top[depth][k] = cv[k];
+            ++depth;
+        } else {                        // the last: merge the whole stack
+            while (depth > 0) {
+                uint32_t left[8];
+                --depth;
+#pragma unroll
+                for (int k = 0; k < 8; ++k) left[k] = top[depth][k];
+                b3_parent(left, cv, depth == 0 ? B3_ROOT : 0u);
+#pragma unroll
+                for (int k = 0; k < 8; ++k) cv[k] = left[k];
+            }
+        }
+    }
+    if (inside && o == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) out[8 * rows[lo] + k] = cv[k];
+    }
 }
 
 __global__ void b3_compress_kernel(const int64_t* __restrict__ cv_in,
@@ -453,17 +539,18 @@ extern "C" int keccak_absorb(const void* data, const void* offsets,
     return (int)cudaGetLastError();
 }
 
-// One row a chunk: offsets, lengths (<= 1024), counters, last_flags [n];
-// out: [n, 8] chaining values.
-extern "C" int b3_chunks(const void* data, const void* offsets,
-                         const void* lengths, const void* counters,
-                         const void* last_flags, void* out, long long n,
-                         void* stream) {
+// Messages: offsets, lengths, lanes (each message's first lane, ascending,
+// every group inside one warp: see b3_rows_kernel), rows [n]; out: [n, 8]
+// digests, message i's in row rows[i]; total: the lanes of all groups.
+extern "C" int b3_rows(const void* data, const void* offsets,
+                       const void* lengths, const void* lanes,
+                       const void* rows, void* out, long long n,
+                       long long total, void* stream) {
     if (n <= 0) return 0;
-    b3_chunks_kernel<<<crypto_grid(n, CRYPTO_THREADS), CRYPTO_THREADS, 0,
-                       (cudaStream_t)stream>>>(
+    b3_rows_kernel<<<crypto_grid(total, 32 * B3_WARPS), 32 * B3_WARPS, 0,
+                     (cudaStream_t)stream>>>(
         (const uint8_t*)data, (const int64_t*)offsets, (const int64_t*)lengths,
-        (const int64_t*)counters, (const int64_t*)last_flags, (int64_t*)out, n);
+        (const int64_t*)lanes, (const int64_t*)rows, (int64_t*)out, n);
     return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
+#include "bytes.cuh"
 #include "m31.cuh"
 
 #define WIDTH 16
@@ -385,6 +386,106 @@ merkle_tree_kernel(const int64_t* __restrict__ leaves, int64_t* __restrict__ out
     }
 }
 
+// ---------------------------------------------------------------------------
+// The interpreter's Poseidon2 syscalls, every paused lane's in one launch:
+// rows of bytes that lie anywhere in `data` (the lanes' memory images), row
+// i at data + offsets[i], lengths[i] bytes, each hashed as the reference's
+// `poseidon2_sponge_hash_bytes` (zkir_tpu/ops/poseidon2_ref.py) hashes one:
+// 4-byte little-endian words mod p (a short last word zero-extended), a 1
+// after the last word, zeros to a whole rate-8 block; each block added into
+// the rate of the state (from zero) and permuted; the digest is the first 8
+// words.  Digest i goes to row rows[i] of `out` [k, 8]: the host hands the
+// rows over in descending count of blocks, so the rows of a warp end
+// together, and this puts each digest back in the caller's order.
+//
+// The port's earlier path gathered every row into an int64 tensor of
+// 8 * blocks words, made its words with torch operations, and launched
+// p2_permute once a block position (94 launches for a 3,000-byte row).
+// Here the bytes are read where they lie, a row's state stays in registers
+// through all its blocks, and the whole batch is one launch.
+//
+// Bound: a row of b blocks is a chain of b permutations, so the batch takes
+// at least its longest row's blocks times one permutation's latency; its
+// blocks times a permutation's instructions at the card's issue rate is the
+// other bound.  A round's rows are some thousands, so the chain sets the
+// time, and a row is spread over 4 lanes (permute4: M4 inside a lane, each
+// matrix's sum in two shuffles): a shorter chain than a thread a row's, for
+// 1.4 times the instructions.  At the crypto service's shapes it took about
+// 0.6 times a thread a row's time on the H100 (PERF.md).
+
+#define SPONGE_THREADS 128
+
+// A 32-bit word mod p.
+__device__ __forceinline__ uint32_t m31_from_u32(uint32_t w) {
+    const uint32_t r = (w & M31_P) + (w >> 31);
+    return r >= M31_P ? r - M31_P : r;
+}
+
+// N words from word w0 of a row of len bytes, after the sponge's padding:
+// each 4 little-endian bytes mod p (the last zero-extended), then a 1 at
+// the row's count of words, zeros beyond.
+template <int N>
+__device__ __forceinline__ void sponge_words(const uint8_t* msg, long long len,
+                                             long long w0, uint32_t* w) {
+    const long long q = 4 * w0;
+    if (q + 4 * N <= len) {
+        load_le_words<N>(msg + q, w);
+#pragma unroll
+        for (int k = 0; k < N; ++k) w[k] = m31_from_u32(w[k]);
+        return;
+    }
+    const long long pad = (len + 3) / 4 * 4;   // the 1's byte offset
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        const long long b = q + 4 * k;
+        uint32_t x = 0;
+#pragma unroll
+        for (int j = 3; j >= 0; --j) x = (x << 8) | msg_byte(msg, b + j, len, 0u);
+        w[k] = b == pad ? 1u : m31_from_u32(x);
+    }
+}
+
+__global__ void __launch_bounds__(SPONGE_THREADS)
+sponge_bytes_kernel(const uint8_t* __restrict__ data,
+                    const int64_t* __restrict__ offsets,
+                    const int64_t* __restrict__ lengths,
+                    const int64_t* __restrict__ rows, int64_t* __restrict__ out,
+                    long long k) {
+    __shared__ P2Constants cst;
+    stage_constants(&cst, threadIdx.x, SPONGE_THREADS);
+    __syncthreads();
+    // Lane b of a row's 4 holds state words 4b .. 4b + 3; lanes 0 and 1
+    // hold the rate.  Every lane of the warp runs the warp's most blocks
+    // (the shuffles' full mask); a row's digest is taken after its own
+    // last block, and a lane past it or past the last row permutes on.
+    const long long t = blockIdx.x * (long long)SPONGE_THREADS + threadIdx.x;
+    const long long i = t / 4;
+    const int b = (int)(t % 4);
+    const bool live = i < k;
+    const long long len = live ? lengths[i] : 0;
+    const uint8_t* msg = data + (live ? offsets[i] : 0);
+    const long long blocks = live ? (len + 3) / 4 / RATE + 1 : 0;
+    const long long most = __reduce_max_sync(FULL_MASK, (unsigned)blocks);
+    uint32_t x[4] = {0, 0, 0, 0}, digest[4];
+    for (long long j = 0; j < most; ++j) {
+        if (b < RATE / 4 && j < blocks) {
+            uint32_t w[4];
+            sponge_words<4>(msg, len, RATE * j + 4 * b, w);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) x[q] = m31_add(x[q], w[q]);
+        }
+        permute4(x, b, &cst);
+        if (j + 1 == blocks) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) digest[q] = x[q];
+        }
+    }
+    if (live && b < RATE / 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[RATE * rows[i] + 4 * b + q] = digest[q];
+    }
+}
+
 // Proof-of-work search: the lowest nonce >= start whose trial state,
 // `state` with word 0 replaced by (state[0] + nonce) mod p, permutes to a
 // word RATE - 1 with its low `bits` bits clear (the transcript's next draw).
@@ -476,6 +577,19 @@ extern "C" int p2_compress_level(const void* in, void* out, long long m,
     const int threads = 128;
     compress_level_kernel<<<blocks_for(m, threads), threads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)in, (int64_t*)out, m);
+    return (int)cudaGetLastError();
+}
+
+// offsets, lengths, rows: [k] (rows in descending count of blocks, see
+// sponge_bytes_kernel); out: [k, 8], row i's digest in row rows[i].
+extern "C" int p2_sponge_bytes(const void* data, const void* offsets,
+                               const void* lengths, const void* rows, void* out,
+                               long long k, void* stream) {
+    if (k <= 0) return 0;
+    sponge_bytes_kernel<<<blocks_for(4 * k, SPONGE_THREADS), SPONGE_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+        (const uint8_t*)data, (const int64_t*)offsets, (const int64_t*)lengths,
+        (const int64_t*)rows, (int64_t*)out, k);
     return (int)cudaGetLastError();
 }
 

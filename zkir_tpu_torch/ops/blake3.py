@@ -2,14 +2,13 @@
 
 Counterpart of ``zkir_tpu/ops/blake3.py``.  Words are int64 tensors of
 32-bit values.  On a GPU ``blake3_rows`` (the interpreter's syscalls, and
-``blake3_many``) is one launch of ``b3_chunks`` (``csrc/crypto.cu``: a
-thread a 1,024-byte chunk chains its blocks and finalizes it, with ROOT
-where the chunk is the whole message), then one launch of ``b3_compress``
-a tree level: each level's parents, of every message at once, are one
-batch.  The reference merges each message's tree in a host loop of
-one-row compressions; the words are the same.  ``b3_compress_batch`` is
-one launch of ``b3_compress``.  On the CPU the plain versions below run
-instead.
+``blake3_many``) is one launch of ``b3_rows`` (``csrc/crypto.cu``): a lane
+hashes a 1,024-byte chunk, and the lanes of one message, inside one warp,
+merge its tree there.  The host only orders the messages by the size of
+their group of lanes and gives each its first lane.  The reference merges
+each message's tree in a host loop of one-row compressions; the words are
+the same.  ``b3_compress_batch`` is one launch of ``b3_compress``.  On the
+CPU the plain versions below run instead.
 """
 
 from __future__ import annotations
@@ -112,38 +111,54 @@ def b3_compress_plain(cv, words, counter_lo, counter_hi, block_len, flags):
 
 
 # ============================================================================
-# Chunks, then the trees a level at a time
+# Whole messages
 # ============================================================================
 
+# A message's group of lanes by its count of chunks (capped at 32; an empty
+# message is one chunk): the next power of two, so groups ordered largest
+# first lie aligned in warps.
+_GROUP = np.array([1] + [1 << (c - 1).bit_length() for c in range(1, 33)],
+                  dtype=np.int64)
 
-def b3_chunks(data, offsets, lengths, counters, last_flags):
-    """Each chunk's chaining value (int64 ``[t, 8]``): chunk i is the bytes
-    ``data[offsets[i] : offsets[i] + lengths[i]]`` (at most 1,024), its
-    blocks chained from the IV with ``counters[i]``, CHUNK_START on the
-    first block and CHUNK_END | ``last_flags[i]`` on the last."""
-    offsets, lengths = byte_rows.check(data, offsets, lengths)
-    counters = np.asarray(counters, dtype=np.int64)
-    last_flags = np.asarray(last_flags, dtype=np.int64)
-    if np.any(lengths > _B3_CHUNK_LEN) or counters.shape != lengths.shape \
-            or last_flags.shape != lengths.shape:
-        raise ValueError("BLAKE3 chunks are at most 1,024 bytes, with a "
-                         "counter and flags each")
+
+def blake3_rows(data, offsets, lengths):
+    """BLAKE3-256 digests of rows of bytes (``byte_rows``) as int64
+    ``[k, 8]`` 32-bit words, little-endian: the 32 bytes are their
+    little-endian bytes.  On a GPU one launch of ``b3_rows``; on the CPU
+    ``blake3_rows_plain``."""
     if not data.is_cuda:
-        return b3_chunks_plain(data, offsets, lengths, counters, last_flags)
+        return blake3_rows_plain(data, offsets, lengths)
     from .. import _kernels
 
-    t = len(lengths)
-    rows = byte_rows.upload(data.device, offsets, lengths, counters,
-                            last_flags)
-    out = torch.empty((t, 8), dtype=torch.int64, device=data.device)
-    _kernels.launch("b3_chunks", data.data_ptr(),
-                    *(r.data_ptr() for r in rows), out.data_ptr(), t)
+    offsets, lengths = byte_rows.check(data, offsets, lengths)
+    k, dev = len(lengths), data.device
+    out = torch.empty((k, 8), dtype=torch.int64, device=dev)
+    if not k:
+        return out
+    group = _GROUP[np.minimum(-(-lengths // _B3_CHUNK_LEN), 32)]
+    # Largest groups first, and one-chunk messages by their blocks, most
+    # first, so that the messages of a warp end together (a lane of a
+    # longer message runs whole chunks of 16 blocks).  int16 keys: numpy's
+    # stable sort is then a radix sort.
+    blocks = np.clip(-(-lengths // _B3_BLOCK_LEN), 1, 16)
+    order = np.argsort(-(17 * group + blocks).astype(np.int16),
+                       kind="stable")
+    lanes = np.zeros(k, dtype=np.int64)
+    np.cumsum(group[order][:-1], out=lanes[1:])
+    rows = byte_rows.upload(dev, offsets[order], lengths[order], lanes,
+                            order)
+    _kernels.launch("b3_rows", data.data_ptr(),
+                    *(r.data_ptr() for r in rows), out.data_ptr(), k,
+                    int(lanes[-1] + group[order[-1]]))
     return out
 
 
-def b3_chunks_plain(data, offsets, lengths, counters, last_flags):
-    """``b3_chunks`` in plain torch: a block position at a time over the
-    chunks that have it."""
+def _chunks_plain(data, offsets, lengths, counters, last_flags):
+    """Each chunk's chaining value (int64 ``[t, 8]``) in plain torch: chunk
+    i is the bytes ``data[offsets[i] : offsets[i] + lengths[i]]`` (at most
+    1,024), its blocks chained from the IV with ``counters[i]``,
+    CHUNK_START on the first block and CHUNK_END | ``last_flags[i]`` on
+    the last; a block position at a time over the chunks that have it."""
     t, dev = len(lengths), data.device
     if not t:
         return torch.empty((0, 8), dtype=torch.int64, device=dev)
@@ -167,27 +182,17 @@ def b3_chunks_plain(data, offsets, lengths, counters, last_flags):
     return cv
 
 
-def blake3_rows(data, offsets, lengths):
-    """BLAKE3-256 digests of rows of bytes (``byte_rows``) as int64
-    ``[k, 8]`` 32-bit words, little-endian: the 32 bytes are their
-    little-endian bytes."""
-    return _blake3_rows(data, offsets, lengths, b3_chunks, b3_compress_batch)
-
-
 def blake3_rows_plain(data, offsets, lengths):
-    """``blake3_rows`` over the plain versions on any device."""
-    return _blake3_rows(data, offsets, lengths, b3_chunks_plain,
-                        b3_compress_plain)
-
-
-def _blake3_rows(data, offsets, lengths, chunks_fn, compress_fn):
+    """``blake3_rows`` in plain torch on any device: every chunk's chaining
+    value (ROOT where the chunk is the whole message), then the trees a
+    level at a time."""
     offsets, lengths = byte_rows.check(data, offsets, lengths)
     k, dev = len(lengths), data.device
     chunks = np.maximum(1, -(-lengths // _B3_CHUNK_LEN))
     start = np.concatenate([[0], np.cumsum(chunks)[:-1]]).astype(np.int64)
     owner = np.repeat(np.arange(k), chunks)
     index = np.arange(int(chunks.sum())) - start[owner]
-    cvs = chunks_fn(
+    cvs = _chunks_plain(
         data, offsets[owner] + index * _B3_CHUNK_LEN,
         np.clip(lengths[owner] - index * _B3_CHUNK_LEN, 0, _B3_CHUNK_LEN),
         index, np.where(chunks[owner] == 1, _B3_ROOT, 0))
@@ -213,7 +218,7 @@ def _blake3_rows(data, offsets, lengths, chunks_fn, compress_fn):
         zero, blen, flags = byte_rows.upload(
             dev, np.zeros_like(flags), np.full_like(flags, _B3_BLOCK_LEN),
             flags)
-        parents = compress_fn(
+        parents = b3_compress_plain(
             None, torch.cat([cvs[left], cvs[left + 1]], 1), zero, zero,
             blen, flags)
         nodes = torch.empty((int(up.sum()), 8), dtype=torch.int64,

@@ -13,8 +13,10 @@ launches kernel K2 (``csrc/poseidon2.cu``):
 - ``poseidon2_compress_level`` / ``poseidon2_compress_batch``:
   ``p2_compress_level``, one tree level per launch (``merkle.build_tree``
   builds a whole tree in one launch of ``p2_merkle_tree``);
-- ``sponge_hash_bytes_batch`` (the interpreter's Poseidon2 syscalls, all
-  paused lanes at once): ``p2_permute`` per block position;
+- ``sponge_hash_rows`` / ``sponge_hash_bytes_batch`` (the interpreter's
+  Poseidon2 syscalls, all paused lanes at once): ``p2_sponge_bytes``, the
+  rows' bytes read where they lie, 4 lanes a row, the whole batch in one
+  launch;
 - ``grind``: ``p2_grind``, the transcript's proof-of-work search in one
   host call (the 16 words go up as a launch parameter, the nonce comes
   back through a pinned word).
@@ -212,10 +214,38 @@ def sponge_hash_bytes_batch(messages, device):
 def sponge_hash_rows(data, offsets, lengths):
     """Sponge digests (int64 ``[k, 8]``) of rows of bytes (``byte_rows``):
     4-byte little-endian words mod p (a short last word zero-extended),
-    1||0* padding, rate-8 blocks.  The words are made on ``data``'s device;
-    block position j is absorbed and permuted in one batch over the rows
-    that have more than j blocks, which the rows sorted by their count of
-    blocks make a prefix (on a GPU a ``p2_permute`` launch a position)."""
+    1||0* padding, rate-8 blocks.  On a GPU one launch of
+    ``p2_sponge_bytes``, which reads each row where it lies; the rows go
+    in descending count of blocks (a warp's rows end together).  On the
+    CPU ``sponge_hash_rows_plain``."""
+    from . import byte_rows
+
+    if not data.is_cuda:
+        return sponge_hash_rows_plain(data, offsets, lengths)
+    from .. import _kernels
+
+    offsets, lengths = byte_rows.check(data, offsets, lengths)
+    k = len(lengths)
+    out = torch.empty((k, RATE), dtype=torch.int64, device=data.device)
+    if k:
+        blocks = -(-lengths // 4) // RATE + 1
+        # int16 keys (rows beyond 2^15 blocks tie): numpy's stable sort is
+        # then a radix sort.
+        order = np.argsort(-np.minimum(blocks, (1 << 15) - 1).astype(
+            np.int16), kind="stable")
+        rows = byte_rows.upload(data.device, offsets[order], lengths[order],
+                                order)
+        _kernels.launch("p2_sponge_bytes", data.data_ptr(),
+                        *(r.data_ptr() for r in rows), out.data_ptr(), k)
+    return out
+
+
+def sponge_hash_rows_plain(data, offsets, lengths):
+    """``sponge_hash_rows`` in plain torch on any device: the words made on
+    ``data``'s device, then block position j absorbed and permuted
+    (``permute_plain``) in one batch over the rows that have more than j
+    blocks, which the rows sorted by their count of blocks make a
+    prefix."""
     from . import byte_rows
 
     offsets, lengths = byte_rows.check(data, offsets, lengths)
@@ -236,7 +266,7 @@ def sponge_hash_rows(data, offsets, lengths):
         live = int(np.count_nonzero(n_blocks > j))
         state[:live, :RATE] = add_plain(state[:live, :RATE],
                                         blocks[:live, j])
-        state[:live] = poseidon2_permute_batch(state[:live])
+        state[:live] = permute_plain(state[:live])
     out = torch.empty((k, RATE), dtype=torch.int64, device=dev)
     out[torch.from_numpy(order).to(dev)] = state[:, :RATE]
     return out

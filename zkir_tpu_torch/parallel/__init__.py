@@ -27,5 +27,6 @@ from .distributed import (
     sharded_interpreter_state,
     prove_step_sharded,
 )
-from .multihost import (initialize_multihost, local_lane_slice, process_info,
+from .multihost import (initialize_multihost, join_local_group,
+                        local_lane_slice, process_info, rendezvous_store,
                         run_local_ranks)

@@ -6,13 +6,15 @@ rendezvous; the collectives of ``parallel.distributed`` then run over the
 ranks of a ``make_mesh`` mesh, within a host and across hosts alike.  I/O
 tapes and program loading stay local to each process (each feeds its own
 lanes: ``local_lane_slice``).  ``run_local_ranks`` starts the ranks of one
-host itself, a process each (``prove --mesh N``).
+host itself, a process each (``prove --mesh N``): the parent holds the
+rendezvous store (``rendezvous_store``) for the whole call and the ranks
+join it as clients (``join_local_group``), so the port is bound from the
+moment it is chosen and no other process can take it in between.
 """
 
 from __future__ import annotations
 
 import datetime
-import socket
 from typing import Callable, Optional
 
 import torch
@@ -66,10 +68,28 @@ def local_lane_slice(total_lanes: int):
     return rank * per, rank * per + per
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# How long a rank waits for the others at the store and in collectives.
+RENDEZVOUS_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def rendezvous_store(timeout=RENDEZVOUS_TIMEOUT) -> dist.TCPStore:
+    """The store a world of local ranks meets at: a ``TCPStore`` server on
+    ``localhost`` at a port the OS picks as it binds (``store.port``).
+    The caller holds it until every rank has returned; the ranks join with
+    ``join_local_group(store.port, ...)``."""
+    return dist.TCPStore("localhost", 0, is_master=True,
+                         wait_for_workers=False, timeout=timeout)
+
+
+def join_local_group(port: int, rank: int, world: int, backend: str,
+                     timeout=RENDEZVOUS_TIMEOUT) -> None:
+    """Start the default process group as rank ``rank`` of ``world`` on
+    ``backend``, through the store another process holds at
+    ``localhost:port`` (``rendezvous_store``), joined as a client."""
+    store = dist.TCPStore("localhost", port, is_master=False,
+                          timeout=timeout)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
 
 
 def _local_rank(rank: int, fn: Callable, world: int, port: int, device: str,
@@ -79,10 +99,7 @@ def _local_rank(rank: int, fn: Callable, world: int, port: int, device: str,
         torch.cuda.set_device(rank)
     else:
         torch.set_num_threads(threads)
-    dist.init_process_group(default_backend(device),
-                            init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(minutes=10))
+    join_local_group(port, rank, world, default_backend(device))
     try:
         fn(*args)
     finally:
@@ -91,7 +108,7 @@ def _local_rank(rank: int, fn: Callable, world: int, port: int, device: str,
 
 def run_local_ranks(fn: Callable, n: int, *args, device="cuda") -> None:
     """Start ``n`` ranks on this host, a process each (``spawn``), in one
-    process group (a ``tcp://localhost`` rendezvous on a free port; NCCL
+    process group (through a ``rendezvous_store`` held here; NCCL
     with rank r on ``cuda:r``, or gloo for ``device="cpu"``), and run
     ``fn(*args)`` on each; ``fn`` and ``args`` must pickle.  Returns when
     every rank has returned.  If a rank fails, the others are stopped and
@@ -115,6 +132,7 @@ def run_local_ranks(fn: Callable, n: int, *args, device="cuda") -> None:
             raise ValueError(f"requested {n} devices, only {available} "
                              "available")
     threads = max(1, torch.get_num_threads() // n)
-    mp.start_processes(_local_rank, args=(fn, n, _free_port(), str(device),
+    store = rendezvous_store()   # held until every rank has returned
+    mp.start_processes(_local_rank, args=(fn, n, store.port, str(device),
                                           threads, args),
                        nprocs=n, join=True, start_method="spawn")

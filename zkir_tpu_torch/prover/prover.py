@@ -850,9 +850,12 @@ def preprocess_aux(log_n: int, log_blowup: int, *, device):
     """Deterministic preprocessed commitment of the aux tables for a
     trace size.  The root is a deterministic function of (log_n,
     log_blowup), so the verifier recomputes it (cached per device) rather
-    than trusting the proof."""
-    return _preprocess_aux_cached(int(log_n), int(log_blowup),
-                                  str(torch.device(device)))
+    than trusting the proof.  The cache is keyed by the device with its
+    index resolved, so ``cuda`` and ``cuda:0`` share one entry."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _preprocess_aux_cached(int(log_n), int(log_blowup), str(device))
 
 
 def preprocess_program(code_words, log_n: int,

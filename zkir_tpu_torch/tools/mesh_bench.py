@@ -50,7 +50,6 @@ import argparse
 import datetime
 import json
 import pathlib
-import socket
 import subprocess
 import sys
 import tempfile
@@ -442,10 +441,8 @@ def _rank(rank: int, world: int, port: int, device: str, shape: dict,
         torch.cuda.set_device(rank % torch.cuda.device_count())
     else:
         torch.set_num_threads(1)
-    dist.init_process_group("nccl" if cuda else "gloo",
-                            init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=300))
+    par.join_local_group(port, rank, world, "nccl" if cuda else "gloo",
+                         timeout=datetime.timedelta(seconds=300))
     lines = []
     try:
         if proves:
@@ -477,6 +474,9 @@ def main() -> int:
     import torch
     import torch.multiprocessing as mp
 
+    sys.path.insert(0, str(ROOT))
+    from zkir_tpu_torch.parallel import rendezvous_store
+
     if args.device == "cuda":
         if torch.cuda.device_count() < args.ranks:
             raise SystemExit(f"mesh_bench: {args.ranks} ranks need as many "
@@ -486,7 +486,6 @@ def main() -> int:
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip()
         print(card, flush=True)
-        sys.path.insert(0, str(ROOT))
         from zkir_tpu_torch import _kernels
         from zkir_tpu_torch.prover import quotient_codegen
 
@@ -495,12 +494,10 @@ def main() -> int:
             # Both paths' parts, built once here for every rank.
             quotient_codegen.prepare(quotient_codegen.plan_key(True, True, 2),
                                      quotient_codegen.plan_key(True, True, 0))
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    store = rendezvous_store()   # held until the ranks have returned
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(
-            _rank, args=(args.ranks, port, args.device,
+            _rank, args=(args.ranks, store.port, args.device,
                          SHAPES["small" if args.small else "full"],
                          args.iters, tmp, proves),
             nprocs=args.ranks, start_method="spawn")

@@ -13,6 +13,11 @@ branches), in address order.  Prints the static instruction count, each
 loop's body, and the dynamic count = straight-line code + body x trips,
 split by opcode class.  Loops must not nest (the permutation's do not).
 
+A Poseidon2 permutation's instructions in this build
+(``p2_instructions``): a probe of ``csrc/poseidon2.cu``'s ``permute`` (one
+thread a state) and ``permute4`` (four lanes a state) called once and
+twice, each loop at its trip count (4, 14, 4 a call), the difference.
+
 The hash kernels' operation counts (``crypto_instructions``) take one
 compression of each as the SASS of a chain of two calls less that of one.
 The quotient's operation count (``chip_smoke.py``'s bound for the
@@ -64,12 +69,20 @@ def instructions(path, kernel):
     return out
 
 
+def backward_branches(ins):
+    """(start, end) of every loop (a backward branch), in address order."""
+    out = []
+    for addr, _, text in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        # (the self-branch after EXIT is padding, not a loop)
+        if m and int(m.group(1), 16) < addr:
+            out.append((int(m.group(1), 16), addr))
+    return out
+
+
 def loops(ins):
     """(start, end) of every loop (a backward branch), widest first."""
-    back = [(int(m.group(1), 16), addr) for addr, _, text in ins
-            for m in [re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)]
-            if m and int(m.group(1), 16) < addr]
-    return sorted(back, key=lambda se: se[0] - se[1])
+    return sorted(backward_branches(ins), key=lambda se: se[0] - se[1])
 
 
 def cycle_loop(ins):
@@ -269,6 +282,70 @@ def crypto_instructions(nvcc: str, csrc, workdir) -> dict:
                               crypto_source(), _CRYPTO_CHAINS, reps=(1, 2))
 
 
+def dynamic_instructions(ins, trips) -> collections.Counter:
+    """Instructions one thread executes in ``ins`` by opcode class: each
+    loop's body (``backward_branches``, not nested) ``trips`` times, the
+    rest once; NOPs aside."""
+    loops = backward_branches(ins)
+    if len(trips) != len(loops):
+        raise ValueError(f"give one trip count per loop ({len(loops)})")
+    total = collections.Counter()
+    for addr, op, _ in ins:
+        weight = 1
+        for (start, end), trip in zip(loops, trips):
+            if start <= addr <= end:
+                weight = trip
+        if op != "NOP":
+            total[op.split(".")[0]] += weight
+    return total
+
+
+def p2_source() -> str:
+    lines = ['#include "poseidon2.cu"', ""]
+    for name, width, call in (
+            ("one", 16, "permute(x);"),
+            ("four", 4, "permute4(x, threadIdx.x & 3, cst);")):
+        for reps in (1, 2):
+            lines += [
+                f'extern "C" __global__ void probe_p2_{name}_x{reps}(',
+                "    const uint32_t* in, uint32_t* o, const P2Constants* cst) {",
+                f"    uint32_t x[{width}];",
+                "#pragma unroll",
+                f"    for (int k = 0; k < {width}; ++k) "
+                "x[k] = in[k * 32 + threadIdx.x];",
+                *[f"    {call}"] * reps,
+                "    o[threadIdx.x] = x[0] ^ x[3];", "}", ""]
+    return "\n".join(lines)
+
+
+def p2_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions of one Poseidon2 permutation in ``csrc/poseidon2.cu``
+    as built for sm_90a: ``one``, one thread's (``permute``); ``four``,
+    its four lanes' together (``permute4``)."""
+    work = pathlib.Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    cu, cubin = work / "p2_probe.cu", work / "p2_probe.cubin"
+    cu.write_text(p2_source())
+    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-std=c++17", "-O3", "-cubin", "-I", str(csrc),
+                          "-o", str(cubin), str(cu)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the p2 probe:\n{res.stderr}")
+    sass = work / "p2_probe.sass"
+    sass.write_text(subprocess.run(
+        [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+        check=True, capture_output=True, text=True).stdout)
+
+    def count(name, reps):
+        return sum(dynamic_instructions(
+            instructions(sass, f"probe_p2_{name}_x{reps}"),
+            [4, 14, 4] * reps).values())
+
+    return {"one": count("one", 2) - count("one", 1),
+            "four": 4 * (count("four", 2) - count("four", 1))}
+
+
 def main():
     if sys.argv[-1] == "--floor":
         ins = instructions(sys.argv[1], sys.argv[2])
@@ -279,24 +356,13 @@ def main():
               f"at least {count}")
         return
     path, kernel, *trips = sys.argv[1:]
-    trips = [int(t) for t in trips]
     ins = instructions(path, kernel)
-    loops = []
-    for addr, op, text in ins:
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
-        # (the self-branch after EXIT is padding, not a loop)
-        if m and int(m.group(1), 16) < addr:
-            loops.append((int(m.group(1), 16), addr))
-    print(f"{kernel}: {len(ins)} static instructions, loops {loops}")
-    if len(trips) != len(loops):
-        sys.exit(f"give one trip count per loop ({len(loops)})")
-    total = collections.Counter()
-    for addr, op, _ in ins:
-        weight = 1
-        for (start, end), trip in zip(loops, trips):
-            if start <= addr <= end:
-                weight = trip
-        total[op.split(".")[0]] += weight
+    print(f"{kernel}: {len(ins)} static instructions, loops "
+          f"{backward_branches(ins)}")
+    try:
+        total = dynamic_instructions(ins, [int(t) for t in trips])
+    except ValueError as e:
+        sys.exit(str(e))
     print("dynamic instructions per thread:", sum(total.values()))
     for op, n in total.most_common():
         print(f"  {op:10s} {n}")
