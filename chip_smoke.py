@@ -13,7 +13,8 @@ path; ``python3 chip_smoke.py --crypto`` only the kernels' build and the
 ``crypto`` phase after phase 5; ``python3 chip_smoke.py --mesh`` only the
 kernels' build, the ``mesh`` phase after it, the quotient's plans, the
 2^16 main path's matrix and proof, and the ``mesh prove`` phase after
-phase 8):
+phase 8; ``python3 chip_smoke.py --sums`` only the kernels' build and the
+LogUp partial sums' two kernels of phase 3):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``zkir_tpu_torch/csrc`` (nvcc, sm_90a),
@@ -39,7 +40,12 @@ phase 8):
    against ``build_tree_plain`` and the per-level loop at every tree shape
    of the main path (2^18 .. 2^6 leaves) and at 2 and 4 leaves, timed
    against the loop beside its bound and its latency floor (levels times
-   a narrow level's latency in the kernel's own chain);
+   a narrow level's latency in the kernel's own chain); the LogUp partial
+   sums' ``qm31_inv_scaled`` at every partial-sum function's 2^16 shape
+   and ``m31_exclusive_scan`` at their row counts and at rows of
+   2^20 and 2^22 words, with the edge words, each call one launch and no
+   K1 launch, timed beside the bound (the inversion's SASS instructions)
+   and, for the scan, ``torch.cumsum`` over the same rows;
 4. prove the small golden traces A-E on the card (A, B without
    ``range_lookup``; C with it; D and E program-bound, with an I/O tape
    and a SHA-256 syscall) and require proofs equal (after a JSON round
@@ -94,7 +100,9 @@ phase 8):
    bound (596 committed trace columns, 119 QM31 partial-sum columns, 838
    batched terms), cold and warm; the two proofs must be equal, the
    port's verifier must accept them with the program, the interpreter's
-   and every prover kernel must have been launched, every tree of every
+   and every prover kernel must have been launched (the warm prove's
+   launches printed, and its partial-sum stage's by kernel: seven
+   ``qm31_inv_scaled`` and six ``m31_exclusive_scan``), every tree of every
    prove (cold and warm, also without ``range_lookup``) must be one
    ``p2_merkle_tree`` launch with no ``p2_compress_level``, and the NTT
    family must launch nothing but ``cm31_ntt``; no prove may compile a
@@ -234,6 +242,13 @@ KERNELS = {
                 "zkir_tpu/ops/blake3.py:107"),
     "b3_compress": ("zkir_tpu_torch/csrc/crypto.cu",
                     "zkir_tpu/ops/blake3.py:61"),
+    # The LogUp partial sums' jitted functions (XLA, not Pallas): their QM31
+    # batch inversion (qm31_batch_inv over _batch_inv_chain) and their
+    # exclusive prefix sums (_exclusive_cumsum4).
+    "qm31_inv_scaled": ("zkir_tpu_torch/csrc/qm31.cu",
+                        "zkir_tpu/ops/qm31.py:142"),
+    "m31_exclusive_scan": ("zkir_tpu_torch/csrc/qm31.cu",
+                           "zkir_tpu/prover/prover.py:347"),
 }
 # The hash kernels serve the interpreter's crypto syscalls, each one launch
 # a service round; no prove launches them.
@@ -264,6 +279,8 @@ MAIN_PATH_KERNELS = [k for k in KERNELS if k not in (
 PROVER_KERNELS = [k for k in MAIN_PATH_KERNELS if k != "interp_run"]
 # The kernels a streaming prove must launch.
 STREAMING_KERNELS = PROVER_KERNELS + ["p2_sponge_absorb"]
+# The LogUp partial sums' kernels: a prove without range_lookup has none.
+SUMS_KERNELS = ("qm31_inv_scaled", "m31_exclusive_scan")
 # Instructions every cycle executes in the interpreter kernel, whatever its
 # opcode: a floor, zkir_tpu_torch/tools/sass_count.py --floor on the
 # older kernel, a thread per lane decoding each word every cycle (1,784
@@ -644,6 +661,7 @@ def phase_kernels(results) -> None:
     del a, b
     phase_binary_layouts(results, gen)
     phase_ntt(results, gen)
+    phase_sums(results, gen)
 
     # K2 at the main path's shapes: a grinding batch, the row sponges of
     # the trace commit (2^18 rows of 2 x 596 words), the partial-sum commit
@@ -711,6 +729,220 @@ def phase_kernels(results) -> None:
             got != poseidon2_sponge(abc):
         raise AssertionError("sponge KAT failed")
     log("poseidon2 KATs: exact")
+
+
+def qm31_instructions() -> dict:
+    """Instructions of one QM31 inversion in this build of
+    ``csrc/qm31.cu`` (a SASS probe)."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.tools.sass_count import qm31_instructions as count
+
+    out = count(_kernels._nvcc(), _kernels.CSRC, _kernels.BUILD / "probe")
+    log(f"qm31.cu SASS: instructions an inversion {out}")
+    return out
+
+
+def qm31_edges(q4):
+    """The front of a QM31 4-tuple of card tensors set to the edge words:
+    QM31 zero, then 0, 1 and p - 1 in each coordinate in turn."""
+    for c in q4:
+        c[..., 0] = 0
+    at = 1
+    for k in range(4):
+        for e in (0, 1, P - 1):
+            q4[k][..., at] = e
+            at += 1
+    return q4
+
+
+def phase_sums(results, gen) -> None:
+    """The LogUp partial sums' two kernels against their plain versions on
+    the card, word for word: ``qm31_inv_scaled`` at every partial-sum
+    function's 2^16 shape (the channels' [92, 2^16] with the table's row
+    for all and beta's coordinates 1-3 as immediates, aux [9, 2^16] with
+    both sides, the crypto slots [11, 2^16] masked, the memory, I/O and
+    program terms and the tape's [2^16]); ``m31_exclusive_scan`` at their
+    row counts and at the streaming prover's 2^20 and 2^22 words a row, with
+    rows of all p - 1; each one launch and no K1 launch; timed at the
+    channels' shape beside its bound (bytes: the tensors passed read once,
+    the output written once; operations: this build's SASS instructions of
+    an inversion in a batch, and of one alone for the table's row once a
+    column) and, for the scan, also at the streaming prover's [2^22] and
+    [4, 2^22], each beside ``torch.cumsum`` over the same int64 rows."""
+    import torch
+
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.ops import qm31
+
+    n = 1 << 16
+    instr = qm31_instructions()
+
+    def q4(shape):
+        return qm31_edges(tuple(words(gen, shape) for _ in range(4)))
+
+    def scale(shape):
+        s = words(gen, shape)
+        s[..., :3] = torch.tensor([0, 1, P - 1], device="cuda")
+        return s
+
+    def only(name, fn):
+        """``fn()`` on the card is exactly one launch of ``name``."""
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        out = fn()
+        launched = {k: v for k, v in _kernels.launches.items() if v}
+        if launched != {name: 1}:
+            raise AssertionError(f"{name}: the call launched {launched}")
+        return out
+
+    def launch_alone(name, call, iters, fix=None):
+        """Milliseconds of ``name``'s launch alone (no wrapper) on the
+        arguments its wrapper passes for ``call()``; ``fix(args)`` first
+        (fresh buffers a launch uses up)."""
+        real = _kernels.launch
+        kept = []
+        _kernels.launch = lambda k, *a: kept.append(a) or real(k, *a)
+        try:
+            out = call()
+        finally:
+            _kernels.launch = real
+        args = list(kept[0])
+        prepare = fix(args) if fix else (lambda: None)
+
+        def once():
+            prepare()
+            real(name, *args)
+
+        ms = cuda_ms(once, iters)
+        del out
+        return ms
+
+    beta = [int(x) for x in words(gen, (4,)).tolist()]
+    chan = (scale((92, n)),)                         # beta0 - witness
+    table = (scale((1, n)),)                         # beta0 - t
+    cases = {
+        "channels [92, 2^16]": dict(
+            x=(*chan, *beta[1:]), a=1, y=(*table, *beta[1:]),
+            b=scale((92, n)), subtract=True),
+        "aux [9, 2^16]": dict(x=q4((9, n)), a=1, y=q4((9, n)),
+                              b=scale((9, n)), subtract=True),
+        "crypto slots [11, 2^16]": dict(x=q4((11, n)), a=scale((11, n))),
+        "memory [2^16]": dict(x=q4((n,)), a=scale((n,)), y=q4((n,)),
+                              b=scale((n,)), subtract=True),
+        "I/O [2^16]": dict(x=q4((n,)), a=scale((n,)), y=q4((n,)),
+                           b=scale((n,))),
+        "program [2^16]": dict(x=q4((n,)), a=1, y=q4((n,)), b=scale((n,)),
+                               subtract=True),
+        "crypto tape [2^16]": dict(x=q4((n,)), a=scale((n,))),
+        "inverse only [2^16]": dict(x=q4((n,))),
+    }
+    for what, kw in cases.items():
+        got = only("qm31_inv_scaled", lambda: qm31.qm31_inv_scaled(**kw))
+        want = qm31.qm31_inv_scaled_plain(**kw)
+        if what != "channels [92, 2^16]":
+            equal(f"qm31_inv_scaled {what}", got, want)
+            continue
+        max_abs_err("qm31_inv_scaled", got, want)
+        del got, want
+        rows = 92
+        # the witness, the table's row and the multiplicities; the three
+        # immediates are no bytes
+        passed = {id(t): t for t in (*kw["x"], kw["a"], *kw["y"], kw["b"])
+                  if isinstance(t, torch.Tensor)}
+        n_bytes = 8 * (sum(t.numel() for t in passed.values())
+                       + 4 * rows * n)
+        # the witness in batches, the table's row once a column alone
+        ops = instr["qm31_inv_batch"] * rows * n + instr["qm31_inv"] * n
+        compare("qm31_inv_scaled", lambda: qm31.qm31_inv_scaled(**kw),
+                lambda: qm31.qm31_inv_scaled_plain(**kw), 20, results,
+                plain_iters=2, n_bytes=n_bytes, n_ops=ops)
+        r = results["qm31_inv_scaled"]
+        r["launch_ms"] = launch_alone(
+            "qm31_inv_scaled", lambda: qm31.qm31_inv_scaled(**kw), 20)
+        log(f"qm31_inv_scaled: the launch alone {r['launch_ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['launch_ms']:.1%} of its bound")
+        results["qm31_inv_scaled"].update(
+            instructions_an_inversion=instr["qm31_inv"],
+            instructions_an_inversion_in_a_batch=instr["qm31_inv_batch"],
+            inversions=rows * n + n, bytes=n_bytes)
+    # The stage's 2^16 inversions at once, for the record: 92 + 1 channel
+    # rows, 18 aux, 11 slots, 2 x 3 memory/I/O/program, 1 tape.
+    log(f"qm31_inv_scaled: {(93 + 18 + 11 + 6 + 1) * n:,} inversions in the "
+        f"2^16 stage")
+
+    def term(shape):
+        t = tuple(words(gen, shape) for _ in range(4))
+        t[1][...] = P - 1                            # rows of all p - 1
+        front = t[2].view(-1)[:3]
+        front[...] = torch.tensor([0, 1, P - 1], device="cuda")[:front.numel()]
+        return t
+
+    # the channels' shape (the kernels line) and the streaming prover's
+    timed_at = {(92, n): "m31_exclusive_scan",
+                (1 << 22,): "m31_exclusive_scan [2^22]",
+                (4, 1 << 22): "m31_exclusive_scan [4, 2^22]"}
+    for shape in ((92, n), (9, n), (n,), (1 << 20,), (1 << 22,),
+                  (4, 1 << 22), (3, 1000), (5, 4097), (1,)):
+        t = term(shape)
+        got = only("m31_exclusive_scan", lambda: qm31.exclusive_cumsum4(t))
+        want = qm31.exclusive_cumsum4_plain(t)
+        key = timed_at.get(shape)
+        if key is None:
+            equal(f"m31_exclusive_scan {list(shape)}", got, want)
+            continue
+        max_abs_err(key, got, want)
+        del got, want
+        compare("m31_exclusive_scan", lambda: qm31.exclusive_cumsum4(t),
+                lambda: qm31.exclusive_cumsum4_plain(t), 20, results,
+                n_bytes=16 * 4 * t[0].numel(), key=key)
+        def fresh(args):
+            """Zero words for the tiles, zeroed before each launch (part
+            of the scan's work)."""
+            rows_, n_ = args[6], args[7]
+            status = torch.zeros(4 * rows_ * -(-n_ // qm31.SCAN_TILE) + 1,
+                                 dtype=torch.int64, device="cuda")
+            args[5] = status.data_ptr()
+            return status.zero_
+
+        r = results[key]
+        r["launch_ms"] = launch_alone(
+            "m31_exclusive_scan", lambda: qm31.exclusive_cumsum4(t), 20,
+            fresh)
+        log(f"{key}: the launch alone (with its zero fill) "
+            f"{r['launch_ms']:.4f} ms, {r['bound_ms'] / r['launch_ms']:.1%} "
+            "of its bound")
+        stacked = torch.stack(t)
+        results[key]["library_ms"] = cuda_ms(
+            lambda: torch.cumsum(stacked, dim=-1), 20)
+        log(f"{key}: torch.cumsum over the same rows "
+            f"{results[key]['library_ms']:.4f} ms")
+        del stacked
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def sums_launches():
+    """Launches by kernel inside each call of ``_sums_columns`` (the
+    partial-sum stage, one-shot and streaming) in the block, in a list."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.prover import prover, streaming
+
+    calls = []
+    real = prover._sums_columns
+
+    def spy(*args, **kwargs):
+        before = dict(_kernels.launches)
+        out = real(*args, **kwargs)
+        calls.append({k: v - before.get(k, 0)
+                      for k, v in _kernels.launches.items()
+                      if v - before.get(k, 0)})
+        return out
+
+    prover._sums_columns = streaming._sums_columns = spy
+    try:
+        yield calls
+    finally:
+        prover._sums_columns = streaming._sums_columns = real
 
 
 def phase_trees(results, gen) -> None:
@@ -2874,7 +3106,9 @@ def phase_full(results, quotient_stats):
                 return prove_trace(ref_matrix, FriConfig(), device="cuda")
 
             with quotient_calls() as calls:
-                proof, first_s, launches = counted(prove, PROVER_KERNELS)
+                proof, first_s, launches = counted(
+                    prove, [k for k in PROVER_KERNELS
+                            if k not in SUMS_KERNELS])
             compare_quotient("[2^18] range_lookup=False", calls[0], results,
                              quotient_stats)
         else:
@@ -2895,8 +3129,14 @@ def phase_full(results, quotient_stats):
                              quotient_stats, key="quotient_part")
         del calls
         log(f"{key}: launches in the first prove: {launches}")
-        warm, warm_s, stages, peak = logged_prove(prove)
+        with sums_launches() as sums:
+            warm, warm_s, stages, peak = logged_prove(prove)
+        warm_launches = sum(v["launches"] for v in stages.values())
         log(f"{key}: warm prove stages: {stages}")
+        log(f"{key}: warm prove launches {warm_launches}; the partial-sum "
+            f"stage's by kernel {sums}")
+        if bound_program is not None:
+            check_sums_stage(key, sums)
         if warm != proof:
             raise AssertionError(f"{key}: cold and warm proofs differ")
         t0 = time.perf_counter()
@@ -2917,7 +3157,8 @@ def phase_full(results, quotient_stats):
             "prove_first_s": first_s, "prove_warm_s": warm_s,
             "rows_per_s_warm": rows / warm_s, "verify_s": verify_s,
             "peak_bytes": peak, "stages_warm_s": stages,
-            "launches": launches}
+            "launches": launches, "warm_launches": warm_launches,
+            "sums_stage_launches": sums}
         log(f"{key}: first {first_s:.3f} s, warm {warm_s:.3f} s "
             f"({rows / warm_s:.1f} rows/s), verify {verify_s:.3f} s (True), "
             f"peak device memory {peak / 2**30:.3f} GiB")
@@ -2926,6 +3167,15 @@ def phase_full(results, quotient_stats):
                          "proof": proof}
         del proof, warm
     return stats, main_path
+
+
+def check_sums_stage(what, sums) -> None:
+    """The partial-sum stage of a prove with the program bound: seven
+    inversions (channels, aux, slots, memory, I/O, tape, program) and six
+    scans (channels, aux, memory, I/O, tape, program), each one launch."""
+    if len(sums) != 1 or sums[0].get("qm31_inv_scaled") != 7 \
+            or sums[0].get("m31_exclusive_scan") != 6:
+        raise AssertionError(f"{what}: the partial-sum stage launched {sums}")
 
 
 @contextlib.contextmanager
@@ -2955,8 +3205,12 @@ def plain_calls():
             return real(*args, **kwargs)
         return plain
 
+    from zkir_tpu_torch.ops import qm31
+
     patched = [(ntt, "ntt_plain"), (merkle, "build_tree_plain"),
-               (constraints, "quotient_evals_plain")]
+               (constraints, "quotient_evals_plain"),
+               (qm31, "qm31_inv_scaled_plain"),
+               (qm31, "exclusive_cumsum4_plain")]
     patched += [(p2, name) for name in (
         "permute_plain", "sponge_rows_plain", "sponge_absorb_plain",
         "compress_level_plain")]
@@ -3104,9 +3358,14 @@ def phase_streaming(results, quotient_stats, main_path) -> dict:
     if proof != main_path["proof"]:
         raise AssertionError("the 2^16 streaming proof differs from the "
                              "one-shot proof")
-    warm, warm_s, stages, peak = logged_prove(prove)
+    with sums_launches() as sums:
+        warm, warm_s, stages, peak = logged_prove(prove)
     if warm != proof:
         raise AssertionError("the 2^16 streaming proves differ")
+    check_sums_stage("stream_2e16_bound", sums)
+    warm_launches = sum(v["launches"] for v in stages.values())
+    log(f"stream_2e16_bound: warm prove launches {warm_launches}; the "
+        f"partial-sum stage's by kernel {sums}")
     t0 = time.perf_counter()
     if not verify_trace(proof, main_path["program"], device="cuda"):
         raise AssertionError("the port's verifier rejects the 2^16 streaming "
@@ -3117,7 +3376,8 @@ def phase_streaming(results, quotient_stats, main_path) -> dict:
         "rows": rows, "col_block": 64, "prove_first_s": first_s,
         "prove_warm_s": warm_s, "rows_per_s_warm": rows / warm_s,
         "verify_s": verify_s, "peak_bytes": peak, "stages_warm_s": stages,
-        "launches": launches}
+        "launches": launches, "warm_launches": warm_launches,
+        "sums_stage_launches": sums}
     log(f"stream_2e16_bound: proof equal to the one-shot proof and verified; "
         f"first {first_s:.3f} s, warm {warm_s:.3f} s ({rows / warm_s:.1f} "
         f"rows/s), peak device memory {peak / 2**30:.3f} GiB; launches "
@@ -3493,6 +3753,13 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--sums"]:
+        phase_sums(results, torch.Generator(device="cuda").manual_seed(SEED))
+        print(json.dumps({"kernel_cases": results, "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--quotient"]:
         print(json.dumps({**quotient_only(results), "card": card}))
         print(json.dumps({"ok": True, "device": {
@@ -3554,7 +3821,11 @@ def main() -> int:
         "p2_sponge_bytes": {k: results["p2_sponge_bytes"][k] for k in (
             "latency_floor_ms", "permutation_latency_ms")},
         "p2_merkle_tree": {k: results["p2_merkle_tree"][k] for k in (
-            "latency_floor_ms", "narrow_level_ms")}}
+            "latency_floor_ms", "narrow_level_ms")},
+        # the LogUp partial sums' kernels: the launch alone (``ms`` is the
+        # call with its wrapper, which the host bounds)
+        **{name: {"launch_ms": results[name]["launch_ms"]}
+           for name in ("qm31_inv_scaled", "m31_exclusive_scan")}}
     main_path = dict(stats["prove_2e16_bound"]["launches"],
                      p2_sponge_absorb=streamed["p2_sponge_absorb"],
                      **{k: crypto_stats["launches"][k]

@@ -31,11 +31,57 @@ Every file here is made with the JAX package (``zkir_tpu``) on the CPU:
   ``preprocess_program`` of golden E's program at 2^10 rows and blowup 4:
   for ``aux`` and ``program``, the table's columns, committed rows, tree
   levels (``<table>_level_<k>``) and root.  Made from ``golden_e.program.zkir``.
+- ``parallel_reference.npz`` (``parallel``): ``zkir_tpu.parallel`` on a
+  virtual CPU mesh of 4 or 2 devices over ``tests/test_torch_parallel.py``'s
+  seeded inputs (its ``_reference``: the NTTs, Merkle roots, LDEs, the
+  sharded Fibonacci lanes and ``prove_step_sharded``), stored by its
+  ``flatten_reference``.
+- ``quotient_reference.npz`` (``quotient``): the reference's quotient
+  (``constraints.quotient_evals`` eager, through
+  ``tests/test_torch_quotient_codegen.py``'s ``_reference``) on that
+  file's seeded 32-point inputs, [4, 32] words for each feature set
+  (``off``, ``on``, ``program``).
+- ``poseidon2_reference.npz`` (``poseidon2``): the reference's Poseidon2
+  words on ``tests/test_torch_poseidon2.py``'s seeded inputs (its
+  ``reference_words``): the Pallas (interpret mode) and jnp permutations,
+  row hashes, fused tree levels, and the grinding transcripts' nonces and
+  next draws.
+- ``ntt_reference.npz`` (``ntt``): the reference's ``ntt``, ``intt``,
+  ``lde``, ``coset_ntt`` and ``coset_intt`` of
+  ``tests/test_torch_ntt.py``'s seeded inputs (its ``reference_words``).
+- ``fri_reference.json`` (``fri``): the reference's ``fri_prove`` of
+  ``tests/test_torch_fri.py``'s seeded values, its config and its
+  challenger's next draw (its ``reference_proof``).
+- ``row_sponge_reference.npz`` (``sponge``): the reference's ``RowSponge``
+  digests of ``tests/test_torch_streaming.py``'s seeded rows (its
+  ``reference_row_sponge``).
+- ``lookup_reference.npz`` (``lookup``): the reference's seven partial-sum
+  functions and three public demands on ``tests/test_torch_lookup.py``'s
+  witnesses of goldens D and E and its seeded challenges (its
+  ``reference_sums``).
+- ``interp_reference.npz`` (``interp``), ``deferred_reference.npz``
+  (``deferred``) and ``interp_run_reference.npz`` (``interp_run``): the
+  reference interpreter's results (and traces) of
+  ``tests/test_torch_interp.py``'s parity runs (its ``run_both``), of
+  ``tests/test_torch_deferred.py``'s (its ``run_ref``) and of
+  ``tests/test_torch_interp_run.py``'s (its ``reference``), recorded by
+  running those tests with ``ZKIR_RECORD_INTERP_REFERENCE``,
+  ``ZKIR_RECORD_DEFERRED_REFERENCE`` or
+  ``ZKIR_RECORD_INTERP_RUN_REFERENCE`` set (``tests/reference_runs.py``).
+- ``crypto_reference.npz`` (``crypto``): the reference's batched SHA-256,
+  Keccak-256 and BLAKE3 results on ``tests/test_torch_crypto_ops.py``'s
+  messages, blocks and states (its ``reference_words``).
+- ``field_reference.npz`` (``field``): the reference's M31 (jnp and the
+  Pallas kernel in interpret mode), CM31 and QM31 vector operations on
+  ``tests/test_torch_field_ops.py``'s seeded words (its
+  ``reference_words``).
 
 Run from the repository root (takes a few minutes); name the fixtures to
 make, or none for all of them::
 
-    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py [trace a b c d e pre]
+    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_fixtures.py \
+        [trace a b c d e pre parallel quotient poseidon2 ntt fri sponge \
+         lookup interp deferred interp_run crypto field]
 """
 
 from __future__ import annotations
@@ -186,13 +232,124 @@ def _preprocessed_e() -> None:
     np.savez_compressed(HERE / "preprocessed_e.npz", **arrays)
 
 
+def _parallel_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_parallel as tp
+
+    results = tp._reference(tp.REFERENCE_CASES, tp._inputs())
+    np.savez_compressed(tp.REFERENCE, **tp.flatten_reference(results))
+
+
+def _quotient_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_quotient_codegen as tq
+
+    terms = tq.reference_terms()
+    np.savez_compressed(tq.REFERENCE, **{
+        name: np.stack([c.numpy() for c in tq._reference(terms, features)])
+        for name, features in tq.FEATURE_SETS.items()})
+
+
+def _poseidon2_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_poseidon2 as tp
+
+    np.savez_compressed(tp.REFERENCE, **tp.reference_words())
+
+
+def _ntt_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_ntt as tn
+
+    np.savez_compressed(tn.REFERENCE, **tn.reference_words())
+
+
+def _fri_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_fri as tf
+
+    tf.REFERENCE.write_text(json.dumps(tf.reference_proof()))
+
+
+def _row_sponge_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_streaming as ts
+
+    np.savez_compressed(ts.SPONGE_REFERENCE,
+                        digests=ts.reference_row_sponge())
+
+
+def _lookup_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_lookup as tl
+
+    np.savez_compressed(tl.REFERENCE, **tl.reference_sums())
+
+
+def _record_runs(test_file: str, env_var: str, out: str, select: str):
+    """Run ``select`` of ``test_file`` with ``env_var`` naming ``out``: its
+    reference runs are recorded there (``tests/reference_runs.py``)."""
+    subprocess.run(
+        [sys.executable, "-m", "pytest", str(ROOT / "tests" / test_file),
+         "-q", "-p", "no:cacheprovider", "-p", "no:randomly", "-k", select],
+        check=True, cwd=ROOT,
+        env=dict(os.environ, **{env_var: str(HERE / out)}))
+
+
+def _interp_reference() -> None:
+    _record_runs("test_torch_interp.py", "ZKIR_RECORD_INTERP_REFERENCE",
+                 "interp_reference.npz",
+                 "parity or hash_syscalls or memory_image or no_input_bytes "
+                 "or carried_over or checkpoint_resumed")
+
+
+def _deferred_reference() -> None:
+    _record_runs("test_torch_deferred.py", "ZKIR_RECORD_DEFERRED_REFERENCE",
+                 "deferred_reference.npz",
+                 "matches_reference_and_oracle or matrix_equals_reference "
+                 "or carried_both_ways")
+
+
+def _interp_run_reference() -> None:
+    _record_runs("test_torch_interp_run.py",
+                 "ZKIR_RECORD_INTERP_RUN_REFERENCE",
+                 "interp_run_reference.npz", "equal_the_reference")
+
+
+def _crypto_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_crypto_ops as tc
+
+    np.savez_compressed(tc.REFERENCE, **tc.reference_words())
+
+
+def _field_reference() -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_field_ops as tf
+
+    np.savez_compressed(tf.REFERENCE, **tf.reference_words())
+
+
 def main() -> None:
+    # The virtual 8-device CPU platform of tests/conftest.py (the mesh
+    # fixture needs it), set before JAX starts.
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     makers = {"trace": _trace_2e16, "a": _golden_a, "b": _golden_b,
               "c": _golden_c, "d": _golden_d, "e": _golden_e,
-              "pre": _preprocessed_e}
+              "pre": _preprocessed_e, "parallel": _parallel_reference,
+              "quotient": _quotient_reference,
+              "poseidon2": _poseidon2_reference, "ntt": _ntt_reference,
+              "fri": _fri_reference, "sponge": _row_sponge_reference,
+              "lookup": _lookup_reference, "interp": _interp_reference,
+              "deferred": _deferred_reference,
+              "interp_run": _interp_run_reference,
+              "crypto": _crypto_reference, "field": _field_reference}
     for name in sys.argv[1:] or list(makers):
         makers[name]()
         print(f"made fixture {name}", flush=True)

@@ -32,7 +32,7 @@ def _small_torch_pool():
     """The suite runs several pytest workers on one machine; a torch
     intra-op thread per core in each of them would oversubscribe it."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

@@ -7,32 +7,34 @@ On the CPU each port function runs the plain torch version of its kernel
 jitted batch functions, and its scalar ``poseidon2_sponge_hash_bytes``.  The
 inputs are the reference tests' vectors (``tests/test_sha256_kernel.py``,
 ``tests/test_crypto_kernels_batch.py``) and messages, blocks and states
-made with ``numpy.random.default_rng``.  Each JAX function runs once per
-file, in a module fixture; the cases compare slices of its result.
+made with ``numpy.random.default_rng``.  The reference's results on these
+inputs are stored in ``tests/fixtures/torch_port/crypto_reference.npz``
+by ``make_fixtures.py crypto``, which runs ``reference_words`` here (each
+JAX function once); the cases compare slices of them.
 """
 
+import functools
 import hashlib
+import pathlib
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from zkir_tpu.ops import blake3 as ref_b3
-from zkir_tpu.ops import keccak as ref_keccak
-from zkir_tpu.ops import sha256 as ref_sha
 from zkir_tpu.ops.poseidon2_ref import poseidon2_sponge_hash_bytes
 from zkir_tpu_torch.ops import blake3, byte_rows, keccak, sha256
 from zkir_tpu_torch.ops import poseidon2 as p2
 
 SEED = 20261018
+REFERENCE = pathlib.Path(__file__).resolve().parent / "fixtures" / \
+    "torch_port" / "crypto_reference.npz"
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _small_torch_pool():
-    """Several pytest workers share the machine: two torch threads each."""
+    """Several pytest workers share the machine: one torch thread each."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -70,24 +72,97 @@ def _u64(a):
 # ============================================================================
 
 
+def _messages(name):
+    return [m for group in MESSAGES[name].values() for m in group]
+
+
+STREAM_PARTS = [[b"hello ", b"world", b"!" * 100], [b"", b"abc", b""],
+                [b"x" * 64, b"y" * 64, b"z" * 7]]
+
+
+def _sha_blocks():
+    rng = np.random.default_rng(SEED + 3)
+    blocks = rng.integers(0, 1 << 32, size=(8, 16), dtype=np.uint64)
+    states = rng.integers(0, 1 << 32, size=(8, 8), dtype=np.uint64)
+    return blocks, states
+
+
+def _keccak_states():
+    rng = np.random.default_rng(SEED + 4)
+    states = rng.integers(0, 1 << 64, size=(8, 25), dtype=np.uint64)
+    states[:, ::2] |= np.uint64(1 << 63)
+    return states
+
+
+def _b3_args():
+    rng = np.random.default_rng(SEED + 5)
+    cv = rng.integers(0, 1 << 32, size=(8, 8), dtype=np.uint64)
+    words = rng.integers(0, 1 << 32, size=(8, 16), dtype=np.uint64)
+    lo, hi = (rng.integers(0, 1 << 32, size=8, dtype=np.uint64)
+              for _ in range(2))
+    hi |= np.uint64(1)
+    block_len = rng.integers(0, 65, size=8, dtype=np.uint64)
+    flags = rng.integers(0, 16, size=8, dtype=np.uint64)
+    return cv, words, lo, hi, block_len, flags
+
+
+def _digest_rows(digests):
+    return np.stack([np.frombuffer(d, dtype=np.uint8) for d in digests])
+
+
+def reference_words():
+    """The reference's results for this file's inputs, by name (what
+    ``make_fixtures.py crypto`` stores)."""
+    import jax.numpy as jnp
+
+    from zkir_tpu.ops import blake3 as ref_b3
+    from zkir_tpu.ops import keccak as ref_keccak
+    from zkir_tpu.ops import sha256 as ref_sha
+
+    out = {
+        "many_sha256": _digest_rows(ref_sha.digests_to_bytes(
+            ref_sha.sha256_many(_messages("sha256")))),
+        "many_keccak": _digest_rows(
+            ref_keccak.keccak256_many(_messages("keccak"))),
+        "many_blake3": _digest_rows(
+            ref_b3.blake3_many(_messages("blake3")))}
+    stream = ref_sha.Sha256Stream(3)
+    for i in range(3):
+        stream.update([part[i] for part in STREAM_PARTS])
+    out["sha256_stream"] = _digest_rows(stream.finalize())
+    final, witness = ref_sha.sha256_compress_batch_with_witness(
+        *(jnp.asarray(a.astype(np.uint32)) for a in _sha_blocks()))
+    out["sha256_final"], out["sha256_witness"] = (np.asarray(final),
+                                                  np.asarray(witness))
+    out["keccak_f1600"] = np.asarray(ref_keccak.keccak_f1600_batch(
+        jnp.asarray(_keccak_states())))
+    out["b3_compress"] = np.asarray(ref_b3.b3_compress_batch(
+        *(jnp.asarray(a.astype(np.uint32)) for a in _b3_args())))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def stored():
+    with np.load(REFERENCE) as f:
+        return {k: f[k] for k in f.files}
+
+
 @pytest.fixture(scope="module")
 def many():
-    """Each hash of every message list, by the reference and by the port,
-    as lists of 32-byte digests."""
+    """Each hash of every message list, by the reference (stored) and by
+    the port, as lists of 32-byte digests."""
     out = {}
-    for name, groups in MESSAGES.items():
-        messages = [m for group in groups.values() for m in group]
+    for name in MESSAGES:
+        messages = _messages(name)
+        ref = [row.tobytes() for row in stored()[f"many_{name}"]]
         if name == "sha256":
-            ref = ref_sha.digests_to_bytes(ref_sha.sha256_many(messages))
             port_words = sha256.sha256_many(messages, "cpu")
             assert port_words.dtype == np.uint32 and port_words.shape == (
                 len(messages), 8)
             port = sha256.digests_to_bytes(port_words)
         elif name == "keccak":
-            ref = ref_keccak.keccak256_many(messages)
             port = keccak.keccak256_many(messages, "cpu")
         else:
-            ref = ref_b3.blake3_many(messages)
             port = blake3.blake3_many(messages, "cpu")
         out[name] = messages, ref, port
     return out
@@ -114,14 +189,11 @@ def test_keccak_known_answer(many):
 
 def test_sha256_stream_equals_the_reference():
     """The reference test's parts through both streams."""
-    parts = [[b"hello ", b"world", b"!" * 100], [b"", b"abc", b""],
-             [b"x" * 64, b"y" * 64, b"z" * 7]]
-    ref, port = ref_sha.Sha256Stream(3), sha256.Sha256Stream(3, "cpu")
+    port = sha256.Sha256Stream(3, "cpu")
     for i in range(3):
-        chunk = [parts[0][i], parts[1][i], parts[2][i]]
-        ref.update(chunk)
-        port.update(chunk)
-    assert port.finalize() == ref.finalize()
+        port.update([part[i] for part in STREAM_PARTS])
+    assert port.finalize() == [row.tobytes()
+                               for row in stored()["sha256_stream"]]
 
 
 # ============================================================================
@@ -131,12 +203,8 @@ def test_sha256_stream_equals_the_reference():
 
 @pytest.fixture(scope="module")
 def sha_blocks():
-    rng = np.random.default_rng(SEED + 3)
-    blocks = rng.integers(0, 1 << 32, size=(8, 16), dtype=np.uint64)
-    states = rng.integers(0, 1 << 32, size=(8, 8), dtype=np.uint64)
-    final, witness = ref_sha.sha256_compress_batch_with_witness(
-        jnp.asarray(blocks.astype(np.uint32)),
-        jnp.asarray(states.astype(np.uint32)))
+    blocks, states = _sha_blocks()
+    final, witness = stored()["sha256_final"], stored()["sha256_witness"]
     port = sha256.sha256_compress_batch_with_witness(
         torch.from_numpy(blocks.astype(np.int64)),
         torch.from_numpy(states.astype(np.int64)))
@@ -160,30 +228,16 @@ def test_sha256_compress_with_witness_equals_the_reference(sha_blocks, part):
 def test_keccak_f1600_equals_the_reference():
     """Eight seeded states, half their lanes with the top bit set: the
     plain version's right shifts must be logical."""
-    rng = np.random.default_rng(SEED + 4)
-    states = rng.integers(0, 1 << 64, size=(8, 25), dtype=np.uint64)
-    states[:, ::2] |= np.uint64(1 << 63)
-    ref = np.asarray(ref_keccak.keccak_f1600_batch(jnp.asarray(states)))
-    port = keccak.keccak_f1600_batch(_u64(states))
-    np.testing.assert_array_equal(port.numpy().view(np.uint64), ref)
+    port = keccak.keccak_f1600_batch(_u64(_keccak_states()))
+    np.testing.assert_array_equal(port.numpy().view(np.uint64),
+                                  stored()["keccak_f1600"])
 
 
 def test_b3_compress_equals_the_reference():
     """Eight seeded rows, their counters above 2^32."""
-    rng = np.random.default_rng(SEED + 5)
-    cv = rng.integers(0, 1 << 32, size=(8, 8), dtype=np.uint64)
-    words = rng.integers(0, 1 << 32, size=(8, 16), dtype=np.uint64)
-    lo, hi = (rng.integers(0, 1 << 32, size=8, dtype=np.uint64)
-              for _ in range(2))
-    hi |= np.uint64(1)
-    block_len = rng.integers(0, 65, size=8, dtype=np.uint64)
-    flags = rng.integers(0, 16, size=8, dtype=np.uint64)
-    args = (cv, words, lo, hi, block_len, flags)
-    ref = ref_b3.b3_compress_batch(*(jnp.asarray(a.astype(np.uint32))
-                                     for a in args))
     port = blake3.b3_compress_batch(*(torch.from_numpy(a.astype(np.int64))
-                                      for a in args))
-    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+                                      for a in _b3_args()))
+    np.testing.assert_array_equal(port.numpy(), stored()["b3_compress"])
 
 
 # ============================================================================

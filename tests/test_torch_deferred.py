@@ -13,7 +13,9 @@ the port's oracle VM (``runtime.VM`` with the deferred model): cycles,
 outputs, final registers and bounds, every trace row's pre-state and the
 normalization witnesses.  Then ``accum`` carried across by ``convert``
 and the checkpoint, the deferred trace's matrix (equal to the plain
-one's), and golden C proved from a deferred trace.
+one's), and golden C proved from a deferred trace.  The reference's runs
+(``run_ref``) are stored in ``tests/fixtures/torch_port/
+deferred_reference.npz`` (``make_fixtures.py deferred`` records them).
 """
 
 import pathlib
@@ -41,6 +43,8 @@ from zkir_tpu_torch.runtime import VM, HaltReason, VMConfig
 from zkir_tpu_torch.spec import Instruction, Op, Program
 from zkir_tpu_torch.tools.fuzz_programs import generate_program
 
+from reference_runs import RunStore
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 CFG = dict(lanes=2, chunk=64, low_bytes=1 << 15, stack_bytes=1 << 12,
@@ -51,7 +55,7 @@ CFG = dict(lanes=2, chunk=64, low_bytes=1 << 15, stack_bytes=1 << 12,
 def _small_torch_pool():
     """Several pytest workers share the machine."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -159,9 +163,25 @@ def run_port(program, tapes, **cfg):
                           device="cpu").run(tapes)
 
 
+# The reference's runs, stored in tests/fixtures/torch_port/
+# deferred_reference.npz (make_fixtures.py deferred records them).
+REFERENCE_RUNS = RunStore(FIXTURES / "deferred_reference.npz",
+                          "ZKIR_RECORD_DEFERRED_REFERENCE")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _record_reference():
+    """While recording, write the reference runs at the end."""
+    yield
+    REFERENCE_RUNS.write()
+
+
 def run_ref(program, tapes, **cfg):
-    return RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                          RefConfig(**{**CFG, **cfg})).run(tapes)
+    cfg = {**CFG, **cfg}
+    return REFERENCE_RUNS.result(
+        program, tapes, None, cfg,
+        lambda: RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                               RefConfig(**cfg)).run(tapes))
 
 
 def assert_same_trace(port, ref):
@@ -296,30 +316,40 @@ def test_machine_state_with_accum_carried_both_ways():
     """One deferred chunk in the reference (accumulated registers left),
     its state carried across, one more chunk in both: equal states, accum
     included, and equal traces."""
-    import jax.numpy as jnp
-
     program, tapes = PROGRAMS["corners"]
-    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                         RefConfig(**CFG))
-    n_words = jnp.int32(ref.n_words)
-    ref_state, _ = ref._chunk_fn(ref.code, n_words, ref.init_state(tapes))
-    assert np.asarray(ref_state.accum).any()
-    state = machine_state_from_reference(_ref_fields(ref_state), device="cpu")
-    assert torch.equal(state.accum,
-                       torch.from_numpy(np.array(ref_state.accum)))
-    ref_state, ref_trace = ref._chunk_fn(ref.code, n_words, ref_state)
+
+    def run():
+        import jax.numpy as jnp
+
+        from zkir_tpu.interp.columnar import _merge_trace_host as ref_merge
+
+        ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                             RefConfig(**CFG))
+        n_words = jnp.int32(ref.n_words)
+        first, _ = ref._chunk_fn(ref.code, n_words, ref.init_state(tapes))
+        second, trace = ref._chunk_fn(ref.code, n_words, first)
+        return {**{f"first.{k}": v for k, v in _ref_fields(first).items()},
+                **{f"second.{k}": v for k, v in _ref_fields(second).items()},
+                "trace": ref_merge({k: np.asarray(v)
+                                    for k, v in trace.items()})}
+
+    out = REFERENCE_RUNS.result(program, tapes, "two chunks", CFG, run)
+    first, second = ({k[len(p):]: v for k, v in out.items()
+                      if k.startswith(p)} for p in ("first.", "second."))
+    assert first["accum"].any()
+    state = machine_state_from_reference(first, device="cpu")
+    assert torch.equal(state.accum, torch.from_numpy(np.array(
+        first["accum"])))
     port = TpuInterpreter(program, InterpConfig(**CFG), device="cpu")
     state, trace = port.chunk_fn(state)
     back = machine_state_to_reference(state)
-    for name, want in _ref_fields(ref_state).items():
+    for name, want in second.items():
         assert back[name].dtype == want.dtype, name
         np.testing.assert_array_equal(back[name], want, name)
-    from zkir_tpu.interp.columnar import _merge_trace_host as ref_merge
-
     assert_same_trace(
         C._merge_trace_host({k: v.numpy() for k, v in trace.items()},
                             port.config),
-        ref_merge({k: np.asarray(v) for k, v in ref_trace.items()}))
+        out["trace"])
 
 
 def test_checkpoint_carries_accum(tmp_path):

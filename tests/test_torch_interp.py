@@ -10,6 +10,12 @@ unreachable filler (one instruction of each opcode family), so that the
 reference compiles one step per code-size bucket instead of one per
 family set.  The 64 seeds of ``tests/fuzz_corpus.json`` are held to their
 pinned digests without the reference.
+
+The reference's results of the parity runs (``run_both``) are stored in
+``tests/fixtures/torch_port/interp_reference.npz``, by a digest of the
+program, tapes, configuration and cycle limit; ``make_fixtures.py interp``
+runs these tests with ``ZKIR_RECORD_INTERP_REFERENCE`` set to the file,
+and ``run_both`` then runs the reference and records its results.
 """
 
 import json
@@ -37,6 +43,8 @@ from zkir_tpu_torch.prover.benchtrace import exact_trace_matrix
 from zkir_tpu_torch.spec import Instruction, Op, Program
 from zkir_tpu_torch.tools.fuzz_programs import generate_program, result_digest
 
+from reference_runs import RunStore
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 # One small configuration shared by every parity case.
@@ -49,7 +57,7 @@ def _small_torch_pool():
     """The suite runs several pytest workers on one machine; a torch
     intra-op thread per core in each of them would oversubscribe it."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -72,12 +80,28 @@ def program_of(instrs, raw_tail=()):
     return program
 
 
+REFERENCE_RUNS = RunStore(FIXTURES / "interp_reference.npz",
+                          "ZKIR_RECORD_INTERP_REFERENCE")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _record_reference():
+    """While recording, write the reference runs at the end."""
+    yield
+    REFERENCE_RUNS.write()
+
+
 def run_both(program, tapes, max_cycles=100_000, **cfg):
+    """The port's run and the reference's (stored; run and recorded while
+    recording) of one program, tapes and configuration."""
     cfg = {**CFG, **cfg}
     port = TpuInterpreter(program, InterpConfig(**cfg), device="cpu").run(
         tapes, max_cycles=max_cycles)
-    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                         RefConfig(**cfg)).run(tapes, max_cycles=max_cycles)
+    ref = REFERENCE_RUNS.result(
+        program, tapes, max_cycles, cfg,
+        lambda: RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                               RefConfig(**cfg)).run(
+                                   tapes, max_cycles=max_cycles))
     return port, ref
 
 
@@ -375,10 +399,13 @@ def test_crypto_syscall_with_no_input_bytes():
         I(Op.ADDI, rd=13, rs1=0, imm=0x4000), I(Op.ECALL),
         I(Op.ADDI, rd=1, rs1=0, imm=0x4000), I(Op.LW, rd=11, rs1=1, imm=0),
         I(Op.ADDI, rd=10, rs1=0, imm=2), I(Op.ECALL), I(Op.EBREAK)])
-    port = TpuInterpreter(program, InterpConfig(lanes=1, chunk=16),
-                          device="cpu").run([[]])
-    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                         RefConfig(lanes=1, chunk=16)).run([[]])
+    cfg = dict(lanes=1, chunk=16)
+    port = TpuInterpreter(program, InterpConfig(**cfg), device="cpu").run(
+        [[]])
+    ref = REFERENCE_RUNS.result(
+        program, [[]], "run", cfg,
+        lambda: RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                               RefConfig(**cfg)).run([[]]))
     oracle = VM(program, [], VMConfig()).run()
     assert ref["halted"].tolist() == [HALT_EBREAK]
     assert ref["outputs"] == [[0xE3B0C442]]
@@ -491,6 +518,29 @@ def _ref_fields(state):
             for name, value in zip(RefState._fields, state)}
 
 
+def reference_two_chunks(program, tapes, cfg):
+    """Two chunks of the reference from the initial state: the states'
+    fields after each (``first.<field>``, ``second.<field>``) and the
+    second chunk's trace merged on the host (stored in
+    ``REFERENCE_RUNS``)."""
+    def run():
+        import jax.numpy as jnp
+
+        ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                             RefConfig(**cfg))
+        n_words = jnp.int32(ref.n_words)
+        first, _ = ref._chunk_fn(ref.code, n_words, ref.init_state(tapes))
+        second, trace = ref._chunk_fn(ref.code, n_words, first)
+        return {**{f"first.{k}": v for k, v in _ref_fields(first).items()},
+                **{f"second.{k}": v for k, v in _ref_fields(second).items()},
+                "trace": ref_merge_trace({k: np.asarray(v)
+                                          for k, v in trace.items()})}
+
+    out = REFERENCE_RUNS.result(program, tapes, "two chunks", cfg, run)
+    return tuple({k[len(p):]: v for k, v in out.items() if k.startswith(p)}
+                 for p in ("first.", "second.")) + (out["trace"],)
+
+
 def test_machine_state_carried_over_from_reference():
     """One chunk in the reference, its state carried across, one more
     chunk in both: equal states and traces."""
@@ -498,25 +548,19 @@ def test_machine_state_carried_over_from_reference():
     program = program_of([Instruction.decode(w) for w in program.code])
     tapes = [inputs, inputs[::-1]]
     cfg = {**CFG, "chunk": 32}
-    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                         RefConfig(**cfg))
-    import jax.numpy as jnp
-
-    n_words = jnp.int32(ref.n_words)
-    ref_state, _ = ref._chunk_fn(ref.code, n_words, ref.init_state(tapes))
+    first, second, ref_trace = reference_two_chunks(program, tapes, cfg)
     port = TpuInterpreter(program, InterpConfig(**cfg), device="cpu")
-    state = machine_state_from_reference(_ref_fields(ref_state), device="cpu")
+    state = machine_state_from_reference(first, device="cpu")
     assert int(state.cycles[0]) == 32
 
-    ref_state, ref_trace = ref._chunk_fn(ref.code, n_words, ref_state)
     state, trace = port.chunk_fn(state)
     back = machine_state_to_reference(state)
-    for name, want in _ref_fields(ref_state).items():
+    for name, want in second.items():
         assert back[name].dtype == want.dtype, name
         np.testing.assert_array_equal(back[name], want, name)
     assert_same_trace(
         C._merge_trace_host({k: v.numpy() for k, v in trace.items()}),
-        ref_merge_trace({k: np.asarray(v) for k, v in ref_trace.items()}))
+        ref_trace)
 
 
 def test_checkpoint_round_trip_and_resume(tmp_path):
@@ -545,22 +589,29 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 
 def test_reference_checkpoint_resumed_by_the_port(tmp_path):
-    """A checkpoint ``.npz`` the reference wrote is resumed by the port."""
-    from zkir_tpu.interp.checkpoint import save_state as ref_save_state
-    import jax.numpy as jnp
-
+    """A checkpoint ``.npz`` the reference wrote (its arrays stored in
+    ``REFERENCE_RUNS``) is resumed by the port."""
     program = program_of(PROGRAMS["io_syscalls"])
     cfg = {**CFG, "chunk": 4}
-    ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                         RefConfig(**cfg))
     tapes = [[77], [5, 6]]
-    ref_state, _ = ref._chunk_fn(ref.code, jnp.int32(ref.n_words),
-                                 ref.init_state(tapes))
-    path = str(tmp_path / "ref.npz")
-    ref_save_state(path, ref, ref_state)
+
+    def checkpoint():
+        from zkir_tpu.interp.checkpoint import save_state as ref_save_state
+        import jax.numpy as jnp
+
+        ref = RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                             RefConfig(**cfg))
+        ref_state, _ = ref._chunk_fn(ref.code, jnp.int32(ref.n_words),
+                                     ref.init_state(tapes))
+        path = str(tmp_path / "ref.npz")
+        ref_save_state(path, ref, ref_state)
+        with np.load(path) as arrays:
+            return {k: arrays[k] for k in arrays.files}
+
+    arrays = REFERENCE_RUNS.result(program, tapes, "checkpoint", cfg,
+                                   checkpoint)
     port = TpuInterpreter(program, InterpConfig(**cfg), device="cpu")
-    with np.load(path) as arrays:
-        state = machine_state_from_reference(arrays, device="cpu")
+    state = machine_state_from_reference(arrays, device="cpu")
     resumed = port.resume(state)
     whole = port.run(tapes)
     for key in ("halted", "exit_code", "cycles", "regs", "bound_bits"):

@@ -8,8 +8,12 @@ so these cases hold them to the reference's host loop: lanes that pause on
 Poseidon2 syscalls at different chunks, a ``max_cycles`` that is not a
 multiple of the chunk, and a run over several doubling segments.  The
 kernel's decoded program is held to the word fields it replaces, and its
-fast instruction classes, translated into Python, to the plain step.
+fast instruction classes, translated into Python, to the plain step.  The
+reference's runs are stored in ``tests/fixtures/torch_port/
+interp_run_reference.npz`` (``make_fixtures.py interp_run`` records them).
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -23,6 +27,8 @@ from zkir_tpu_torch.interp import (HALT_CYCLE_LIMIT, HALT_EXIT, HALT_NONE,
                                    decode_table, interp_chunk_plain)
 from zkir_tpu_torch.interp import columnar as C
 from zkir_tpu_torch.spec import Instruction as I, Op, Program
+
+from reference_runs import RunStore
 
 CFG = dict(lanes=2, chunk=64, low_bytes=1 << 15, stack_bytes=1 << 12,
            collect_trace=True)
@@ -39,7 +45,7 @@ FILLER = [I(Op.MUL, rd=1, rs1=1, rs2=1), I(Op.MULH, rd=1, rs1=1, rs2=1),
 @pytest.fixture(scope="module", autouse=True)
 def _small_torch_pool():
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -117,9 +123,24 @@ def assert_equal(got, want, valid_rows_only=False):
         np.testing.assert_array_equal(g, w, key)
 
 
+REFERENCE_RUNS = RunStore(
+    pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_port" /
+    "interp_run_reference.npz", "ZKIR_RECORD_INTERP_RUN_REFERENCE")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _record_reference():
+    """While recording, write the reference runs at the end."""
+    yield
+    REFERENCE_RUNS.write()
+
+
 def reference(program, tapes, max_cycles):
-    return RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
-                          RefConfig(**CFG)).run(tapes, max_cycles=max_cycles)
+    return REFERENCE_RUNS.result(
+        program, tapes, max_cycles, CFG,
+        lambda: RefInterpreter(RefProgram.from_bytes(program.to_bytes()),
+                               RefConfig(**CFG)).run(
+                                   tapes, max_cycles=max_cycles))
 
 
 @pytest.mark.parametrize("max_cycles", [100_000, 100],

@@ -286,7 +286,7 @@ def test_every_entry_point_has_its_c_function():
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert set(_kernels._SIGNATURES) <= defined
     assert set(_kernels.launches) == {*_kernels._SIGNATURES, "quotient_part"}
-    assert len(_kernels._SIGNATURES) == 15
+    assert len(_kernels._SIGNATURES) == 17
 
 
 def _crypto_calls():
@@ -341,3 +341,95 @@ def test_sponge_hash_bytes_batch_equals_the_scalar_sponge():
                 for n in (0, 1, 3, 4, 31, 32, 33, 64, 100)]
     got = p2.sponge_hash_bytes_batch(messages, "cpu")
     assert got.tolist() == [poseidon2_sponge_hash_bytes(m) for m in messages]
+
+
+@pytest.mark.parametrize("name", ["qm31_inv_scaled", "m31_exclusive_scan"])
+def test_partial_sum_entry_point_takes_its_plain_version_on_the_cpu(name):
+    """The LogUp partial sums' wrappers (``qm31_inv_scaled`` with a row of
+    y for all rows and a subtracted second term; ``exclusive_cumsum4``),
+    given CPU tensors, return their plain versions' words and count no
+    launch."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.ops import qm31
+
+    x = tuple(words(60 + k, (3, 40)) for k in range(4))
+    y = tuple(words(70 + k, (1, 40)) for k in range(4))
+    a, b = words(80, (3, 40)), words(81, (3, 40))
+    before = _kernels.launches[name]
+    if name == "qm31_inv_scaled":
+        got = qm31.qm31_inv_scaled(x, a, y, b, subtract=True)
+        want = qm31.qm31_inv_scaled_plain(x, a, y, b, subtract=True)
+    else:
+        got = qm31.exclusive_cumsum4(x)
+        want = qm31.exclusive_cumsum4_plain(x)
+    assert _kernels.launches[name] == before
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+def test_partial_sum_inversion_descriptor(monkeypatch):
+    """What ``qm31_inv_scaled`` tells its kernel for the lookup channels'
+    layout (x [3, n] with constant coordinates 1-3, a table row y [1, n]
+    for all rows, subtracted): rows, length, rows a thread, flags, each
+    operand's row stride (0: one row for all, or an immediate) and
+    immediates; the launch is faked (no card)."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.ops import qm31
+
+    calls = []
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    w, t, m = words(90, (3, 40)), words(91, (1, 40)), words(92, (3, 40))
+    out = qm31._inv_scaled_cuda((w, 5, 6, P + 7), 1, (t, 5, 6, 7), m, True)
+    assert [tuple(c.shape) for c in out] == [(3, 40)] * 4
+    (name, args), = calls
+    assert name == "qm31_inv_scaled"
+    ptrs, desc = args[:10], list(args[11])
+    assert ptrs[0] == w.data_ptr() and ptrs[4] == t.data_ptr()
+    assert ptrs[9] == m.data_ptr()
+    assert ptrs[1:4] == ptrs[5:8] == (None,) * 3 and ptrs[8] is None
+    assert desc[:4] == [3, 40, 3, 1 | 2]
+    assert desc[4:14] == [40, 0, 0, 0, 0, 0, 0, 0, 0, 40]
+    assert desc[14:24] == [0, 5, 6, 7, 0, 5, 6, 7, 1, 0]
+    # One row (the memory term's layout, both sides): folded into rows
+    # that share a thread's exponent chain, runs of at most 4.
+    for n, rows in ((64, 4), (36, 4), (6, 2), (7, 1)):
+        v, r = words(94, (n,)), words(95, (n,))
+        out = qm31._inv_scaled_cuda((v, v, v, v), v, (r, r, r, r), r, True)
+        assert [tuple(c.shape) for c in out] == [(n,)] * 4
+        (_, args), = calls[1:]
+        del calls[1:]
+        desc = list(args[11])
+        assert desc[:4] == [rows, n // rows, rows, 1 | 2]
+        assert desc[4:14] == [n // rows if rows > 1 else 0] * 10
+
+
+def test_partial_sum_scan_arguments(monkeypatch):
+    """What ``exclusive_cumsum4`` tells its kernel: the four coordinates'
+    rows, zero words for its tiles (one a tile of 4,096 words of each
+    row, and the counter), the row count and length, and whether two words
+    a load fit (an even length); the launch is faked (no card)."""
+    from zkir_tpu_torch import _kernels
+    from zkir_tpu_torch.ops import qm31
+
+    calls = []
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(qm31, "_on_cuda", lambda values: True)
+    zeros = []
+    real_zeros = torch.zeros
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: zeros.append(
+        real_zeros(*a, **k)) or zeros[-1])
+    for shape, vec, tiles in (((5, 64), 1, 5), ((7,), 0, 1),
+                              ((2, 4097), 0, 4)):
+        term = tuple(words(93 + k, shape) for k in range(4))
+        out = qm31.exclusive_cumsum4(term)
+        name, args = calls.pop()
+        status = zeros.pop()
+        assert name == "m31_exclusive_scan"
+        assert args[:4] == tuple(c.data_ptr() for c in term)
+        assert args[5] == status.data_ptr()
+        assert status.shape == (4 * tiles + 1,) and not status.any()
+        assert args[6:] == (shape[0] if len(shape) == 2 else 1, shape[-1],
+                            vec)
+        assert [tuple(c.shape) for c in out] == [shape] * 4

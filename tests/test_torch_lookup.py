@@ -4,10 +4,14 @@ functions, the three public demands and the preprocessed tables.
 
 Inputs are the golden D (I/O tape) and E (stores, a load, a SHA-256
 syscall) matrices of ``tests/fixtures/torch_port`` padded to 1,024 rows,
-and QM31 challenges from a numpy seed.  The reference functions run on
-the CPU as the JAX package's own tests run them.
+and QM31 challenges from a numpy seed.  The reference's host functions
+run here; its jitted partial-sum and demand functions ran on the CPU as
+the JAX package's own tests run them, and their words on these inputs
+are stored in ``tests/fixtures/torch_port/lookup_reference.npz`` by
+``make_fixtures.py lookup``, which runs ``reference_sums`` here.
 """
 
+import functools
 import pathlib
 
 import numpy as np
@@ -18,11 +22,13 @@ from zkir_tpu.prover import prover as ref
 from zkir_tpu.spec import Program as RefProgram
 from zkir_tpu_torch.convert import (fixture_from_reference,
                                     preprocessed_from_reference)
+from zkir_tpu_torch.ops.qm31 import exclusive_cumsum4
 from zkir_tpu_torch.prover import prover as port
 from zkir_tpu_torch.prover.aux_table import aux_table_columns
 from zkir_tpu_torch.prover.fri import FriConfig
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_port"
+REFERENCE = FIXTURES / "lookup_reference.npz"
 P = (1 << 31) - 1
 SEED = 20261016
 
@@ -32,7 +38,7 @@ def _small_torch_pool():
     """The suite runs several pytest workers on one machine; a torch
     intra-op thread per core in each of them would oversubscribe it."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -116,6 +122,11 @@ def _flat(out):
     return [_np4(out)]
 
 
+def _with_scan(f4):
+    """(S, F) of a per-row term F: its exclusive prefix sums, and F."""
+    return exclusive_cumsum4(f4), f4
+
+
 # function -> (golden, the reference's call on (witness, challenges), the
 # port's).  The reference's functions read the host matrix; the port's read
 # the same matrix as columns on the device.
@@ -142,8 +153,10 @@ _SUMS = {
         "e",
         lambda w, c: ref._memory_partial_sum(w["padded"], c["beta"],
                                              c["delta"]),
-        lambda w, c: port._memory_partial_sum(w["cols"], c["beta"],
-                                              c["delta"])),
+        # The port's returns the per-row term F alone (its sums columns
+        # scan F after adding the crypto slots' demands): S is its scan.
+        lambda w, c: _with_scan(port._memory_partial_sum(
+            w["cols"], c["beta"], c["delta"]))),
     "_io_partial_sum": (
         "d",
         lambda w, c: ref._io_partial_sum(w["padded"], c["beta"], c["delta"]),
@@ -175,16 +188,39 @@ _DEMANDS = {
 }
 
 
+def reference_sums():
+    """The reference's words of every function of ``_SUMS`` and
+    ``_DEMANDS`` on the goldens' witnesses and the seeded challenges, by
+    ``function#k`` (what ``make_fixtures.py lookup`` stores)."""
+    c = _challenges()
+    out = {}
+    for function, (name, ref_call, _) in _SUMS.items():
+        for k, a in enumerate(_flat(ref_call(_witness(ref, name), c))):
+            out[f"{function}#{k}"] = a.astype(np.uint32)
+    for function, (name, call) in _DEMANDS.items():
+        out[function] = np.asarray(call(ref, _witness(ref, name), c, {}),
+                                   dtype=np.int64)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def stored():
+    with np.load(REFERENCE) as f:
+        return {k: f[k] for k in f.files}
+
+
 @pytest.mark.parametrize("function", list(_SUMS) + list(_DEMANDS))
 def test_partial_sums_and_demands_match_reference(witnesses, function):
     """Same padded matrix, same seeded challenges: the reference's jitted
-    compress -> batch-invert -> prefix-sum functions against the port's
-    (whose compression runs on the device, and whose inversion is
+    compress -> batch-invert -> prefix-sum functions (stored) against the
+    port's (whose compression runs on the device, and whose inversion is
     elementwise Fermat where the reference runs a Montgomery chain)."""
     c = _challenges()
     if function in _SUMS:
-        name, ref_call, port_call = _SUMS[function]
-        want = _flat(ref_call(witnesses["ref", name], c))
+        name, _, port_call = _SUMS[function]
+        n_parts = sum(k.startswith(f"{function}#") for k in stored())
+        want = [stored()[f"{function}#{k}"].astype(np.int64)
+                for k in range(n_parts)]
         got = _flat(port_call(witnesses["port", name], c))
         assert len(got) == len(want)
         for g, w in zip(got, want):
@@ -193,7 +229,7 @@ def test_partial_sums_and_demands_match_reference(witnesses, function):
             assert w.any()          # the channel is exercised by the trace
     else:
         name, call = _DEMANDS[function]
-        want = call(ref, witnesses["ref", name], c, {})
+        want = tuple(int(x) for x in stored()[function])
         got = call(port, witnesses["port", name], c, {"device": "cpu"})
         assert got == want and any(want)
 

@@ -6,12 +6,15 @@ and drive ``asm``, ``run`` (the native and the oracle engine), ``prove``
 and ``verify`` of ``examples/add.zkasm`` through the CLI on the CPU; and,
 in another such interpreter, import ``zkir_tpu_torch.parallel``, run a
 one-rank gloo ``dist_ntt_natural`` and ``dist_merkle_root``, prove golden
-B on that mesh, and run the CLI's ``warm``."""
+B on that mesh, and run the CLI's ``warm``.  Both run in one such
+interpreter, one after the other."""
 
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -67,17 +70,6 @@ print("NO_JAX_OK")
 """
 
 
-def test_port_needs_no_jax():
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300,
-                         # two torch threads: other pytest workers share
-                         # the machine
-                         env=dict(os.environ, PYTHONPATH=str(ROOT),
-                                  OMP_NUM_THREADS="2"))
-    assert res.returncode == 0, res.stderr[-4000:]
-    assert "NO_JAX_OK" in res.stdout
-
-
 PARALLEL_SCRIPT = r"""
 import contextlib, io, json, pathlib, sys
 sys.modules["jax"] = None
@@ -123,15 +115,47 @@ print("NO_JAX_PARALLEL_OK")
 """
 
 
-def test_parallel_needs_no_jax():
+# Both scripts in one fresh interpreter, one after the other (each pays
+# ``import torch`` once less): a script that fails prints its name and
+# traceback, and the next one still runs.
+RUNNER = r"""
+import sys, traceback
+for name, script in SCRIPTS:
+    try:
+        exec(compile(script, name, "exec"), {"__name__": "__main__"})
+    except BaseException:
+        print(f"FAILED {name}", flush=True)
+        traceback.print_exc()
+"""
+
+
+@pytest.fixture(scope="module")
+def fresh_interpreter():
+    """Both scripts' run: (stdout, stderr)."""
+    scripts = [("port", SCRIPT), ("parallel", PARALLEL_SCRIPT)]
+    res = subprocess.run([sys.executable, "-c",
+                          f"SCRIPTS = {scripts!r}\n{RUNNER}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600,
+                         # one torch thread: other pytest workers share
+                         # the machine
+                         env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                  OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout, res.stderr
+
+
+def test_port_needs_no_jax(fresh_interpreter):
+    out, err = fresh_interpreter
+    assert "FAILED port" not in out, err[-4000:]
+    assert "NO_JAX_OK" in out
+
+
+def test_parallel_needs_no_jax(fresh_interpreter):
     """``zkir_tpu_torch.parallel`` (all four modules) imports neither
     ``jax`` nor ``zkir_tpu``; a one-rank gloo world runs
     ``dist_ntt_natural`` and ``dist_merkle_root`` to the single-device
     results and proves golden B on its mesh to the reference proof; and
     ``warm --log-rows 10`` runs through the CLI."""
-    res = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT),
-                                  OMP_NUM_THREADS="2"))
-    assert res.returncode == 0, res.stderr[-4000:]
-    assert "NO_JAX_PARALLEL_OK" in res.stdout
+    out, err = fresh_interpreter
+    assert "FAILED parallel" not in out, err[-4000:]
+    assert "NO_JAX_PARALLEL_OK" in out

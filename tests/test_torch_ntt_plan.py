@@ -244,9 +244,9 @@ class Emulator:
 
 @pytest.fixture(scope="module", autouse=True)
 def _small_torch_pool():
-    """Several pytest workers share the machine: two torch threads each."""
+    """Several pytest workers share the machine: one torch thread each."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

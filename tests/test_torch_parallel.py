@@ -4,10 +4,13 @@ One spawn of 4 ranks (``make_mesh(4, device="cpu")``) and one of 2 ranks
 (started through ``initialize_multihost``) run every distributed function
 on seeded inputs; a world of one rank runs in this process.  Each rank
 saves its results; the tests hold them, word for word, against the JAX
-reference on the conftest's virtual CPU mesh (``zkir_tpu.parallel`` on
-``make_mesh(4)`` or ``make_mesh(2)``) and against the port's
-single-device functions.  The cases are the reference tests' own
-(``tests/test_parallel.py``).  Refusals: a mesh that is not a power of
+reference on a virtual CPU mesh (``zkir_tpu.parallel`` on ``make_mesh(4)``
+or ``make_mesh(2)``) and against the port's single-device functions.  The
+reference's results on these seeded inputs are stored in
+``tests/fixtures/torch_port/parallel_reference.npz`` (``_reference``, run
+by ``make_fixtures.py parallel``): tracing its Poseidon2 inside shard_map
+took four processes most of a minute each time.  The cases are the
+reference tests' own (``tests/test_parallel.py``).  Refusals: a mesh that is not a power of
 two, a domain too small for the mesh, more ranks than the world has,
 ``make_mesh`` on ``cuda`` without CUDA.
 """
@@ -31,6 +34,8 @@ from zkir_tpu_torch.spec import Instruction, Op, Program
 from zkir_tpu_torch.tools.mesh_bench import single_step
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+REFERENCE = ROOT / "tests" / "fixtures" / "torch_port" / \
+    "parallel_reference.npz"
 P = (1 << 31) - 1
 FIB = [0, 1, 1, 2, 3, 5, 8, 13]
 SPAWN_SECONDS = 240
@@ -168,16 +173,11 @@ def _rank_main(rank, world, port, inputs, out_dir):
         dist.destroy_process_group()
 
 
-# The reference's cases in four groups of about equal cost, one process
-# each: tracing the reference's Poseidon2 inside shard_map takes most of
-# its time, and one process would run them one after another.
-REFERENCE_GROUPS = (
-    ((4, "ntt8"), (4, "ntt10"), (4, "ntt12"), (2, "ntt8 real"),
-     (4, "lde [16, 2^6]"), (2, "lde [4, 2^5] shift"), (4, "fib")),
-    ((4, "merkle [64, 6]"),),
-    ((2, "merkle [16, 3]"),),
-    ((4, "step"),),
-)
+# The reference's cases: (world, name).
+REFERENCE_CASES = (
+    (4, "ntt8"), (4, "ntt10"), (4, "ntt12"), (2, "ntt8 real"),
+    (4, "lde [16, 2^6]"), (2, "lde [4, 2^5] shift"), (4, "fib"),
+    (4, "merkle [64, 6]"), (2, "merkle [16, 3]"), (4, "step"))
 
 
 def _reference(cases, inputs):
@@ -233,11 +233,37 @@ def _reference(cases, inputs):
     return out
 
 
-def _reference_main(index, inputs, out_dir):
-    import conftest  # noqa: F401  (the virtual 8-device CPU platform)
+def flatten_reference(results):
+    """``_reference``'s results as named arrays: ``name`` for an array,
+    ``name#i`` for a list's items, ``name.key`` for a dict's."""
+    out = {}
+    for name, v in results.items():
+        if isinstance(v, dict):
+            out.update({f"{name}.{k}": np.asarray(a) for k, a in v.items()})
+        elif isinstance(v, list):
+            out.update({f"{name}#{i}": np.asarray(a) for i, a in enumerate(v)})
+        else:
+            out[name] = np.asarray(v)
+    return out
 
-    torch.save(_reference(REFERENCE_GROUPS[index], inputs),
-               pathlib.Path(out_dir) / f"ref{index}.pt")
+
+def load_reference():
+    """The stored reference results, as ``_reference`` returns them."""
+    out = {}
+    with np.load(REFERENCE) as stored:
+        for key in stored.files:
+            a = stored[key]
+            if "#" in key:
+                name, i = key.split("#")
+                out.setdefault(name, {})[int(i)] = a
+            elif "." in key:
+                name, k = key.split(".")
+                out.setdefault(name, {})[k] = a
+            else:
+                out[key] = a
+    return {name: [v[i] for i in sorted(v)]
+            if isinstance(v, dict) and all(isinstance(i, int) for i in v)
+            else v for name, v in out.items()}
 
 
 def _single(inputs):
@@ -276,21 +302,18 @@ def _single(inputs):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both spawns of ranks and the reference's processes started
-    together; the single-device results and the one-rank world computed
-    here while they run; then every rank's results, by world and rank."""
+    """Both spawns of ranks started together; the single-device results
+    and the one-rank world computed here while they run; then every rank's
+    results, by world and rank, and the stored reference's."""
     out_dir = tmp_path_factory.mktemp("ranks")
     inputs = _inputs()
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     # Each world's store is held here until its ranks have finished.
     stores = {world: par.rendezvous_store() for world in (4, 2)}
     contexts = [mp.start_processes(
         _rank_main, args=(world, stores[world].port, inputs, str(out_dir)),
         nprocs=world, join=False, start_method="spawn") for world in (4, 2)]
-    contexts.append(mp.start_processes(
-        _reference_main, args=(inputs, str(out_dir)),
-        nprocs=len(REFERENCE_GROUPS), join=False, start_method="spawn"))
     try:
         single = _single(inputs)
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
@@ -319,10 +342,7 @@ def runs(tmp_path_factory):
     ranks = {world: [load(f"w{world}r{r}.pt") for r in range(world)]
              for world in (4, 2)}
     ranks[1] = [one]
-    reference = {}
-    for i in range(len(REFERENCE_GROUPS)):
-        reference.update(load(f"ref{i}.pt"))
-    return {"ranks": ranks, "reference": reference, "single": single}
+    return {"ranks": ranks, "reference": load_reference(), "single": single}
 
 
 def _cases(kind):

@@ -1,10 +1,16 @@
 """The port's Poseidon2, Merkle trees and grinding against the JAX package.
 
-Tolerance 0.  The Pallas permutation runs in interpret mode, as
-``tests/test_ops_kernels.py`` runs it on the CPU.
+Tolerance 0.  The reference's words on these seeded inputs (its Pallas
+permutation in interpret mode, as ``tests/test_ops_kernels.py`` runs it on
+the CPU, its jnp permutation, row hashes, fused trees and grinding
+transcripts) are stored in ``tests/fixtures/torch_port/
+poseidon2_reference.npz`` by ``make_fixtures.py poseidon2``, which runs
+``reference_words`` here: compiling them took most of this file's time.
 """
 
-import jax.numpy as jnp
+import functools
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +27,10 @@ from zkir_tpu_torch.ops.poseidon2_ref import (bytes_to_field_elements,
 from zkir_tpu_torch.prover.challenger import Challenger
 
 P = (1 << 31) - 1
+REFERENCE = pathlib.Path(__file__).resolve().parent / "fixtures" / \
+    "torch_port" / "poseidon2_reference.npz"
+TREE_SIZES = (1, 2, 8, 64)
+GRIND_BITS = (0, 1, 2, 8)
 
 
 def words(seed, shape):
@@ -37,16 +47,60 @@ def host(x):
                       dtype=np.uint32)
 
 
-def test_permute_matches_pallas_and_jnp():
+def _permute_states():
     states = words(1, (8, 16))
     states[0] = 0
     states[1] = P - 1
-    got = host(pp.poseidon2_permute_batch(t(states)))
-    pallas = host(rp.poseidon2_permute_pallas(jnp.asarray(states),
-                                              interpret=True))
-    want = host(rp.poseidon2_permute_batch(jnp.asarray(states)))
-    np.testing.assert_array_equal(got, pallas)
-    np.testing.assert_array_equal(got, want)
+    return states
+
+
+def _transcript(cls, bits):
+    c = cls()
+    c.observe_many([7, 11, bits])
+    c.sample()                  # duplexes: nothing is left pending
+    return c
+
+
+def reference_words():
+    """The reference's words for this file's inputs, by name (what
+    ``make_fixtures.py poseidon2`` stores)."""
+    import jax.numpy as jnp
+
+    out = {"permute_pallas": rp.poseidon2_permute_pallas(
+               jnp.asarray(_permute_states()), interpret=True),
+           "permute_jnp": rp.poseidon2_permute_batch(
+               jnp.asarray(_permute_states()))}
+    for width in (16, 13):
+        out[f"hash_rows_{width}"] = rm.hash_rows(
+            jnp.asarray(words(2 + width, (32, width))))
+    trees = {"fused": words(6, (8, 8))}
+    trees.update({f"tree_{n}": words(30 + n, (n, 8)) for n in TREE_SIZES})
+    for name, leaves in trees.items():
+        for k, level in enumerate(rm.to_host(rm.build_tree_fused(
+                jnp.asarray(leaves)))):
+            out[f"{name}_level_{k}"] = level
+    for bits in GRIND_BITS:
+        ref = _transcript(RefChallenger, bits)
+        out[f"grind_{bits}"] = [ref.grind(bits), ref.sample()]
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def stored():
+    with np.load(REFERENCE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def stored_levels(name):
+    out = stored()
+    return [out[f"{name}_level_{k}"]
+            for k in range(sum(k.startswith(f"{name}_level_") for k in out))]
+
+
+def test_permute_matches_pallas_and_jnp():
+    got = host(pp.poseidon2_permute_batch(t(_permute_states())))
+    np.testing.assert_array_equal(got, stored()["permute_pallas"])
+    np.testing.assert_array_equal(got, stored()["permute_jnp"])
 
 
 def test_pinned_kats():
@@ -67,7 +121,7 @@ def test_hash_rows(width):
     """A width that is a multiple of 8 still gets the 1||0* padding."""
     m = words(2 + width, (32, width))
     np.testing.assert_array_equal(host(pm.hash_rows(t(m))),
-                                  host(rm.hash_rows(jnp.asarray(m))))
+                                  stored()[f"hash_rows_{width}"])
 
 
 def test_sponge_and_compress_batch():
@@ -88,7 +142,7 @@ def test_sponge_and_compress_batch():
 def test_build_tree_fused_and_paths():
     leaves = words(6, (8, 8))
     got = pm.to_host(pm.build_tree_fused(t(leaves)))
-    want = rm.to_host(rm.build_tree_fused(jnp.asarray(leaves)))
+    want = stored_levels("fused")
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -138,13 +192,13 @@ def test_build_tree_plain_levels_are_views_of_one_buffer(n):
     assert levels[-1].storage_offset() == 8 * (n - 2)
 
 
-@pytest.mark.parametrize("n", [1, 2, 8, 64])
+@pytest.mark.parametrize("n", TREE_SIZES)
 def test_build_tree_matches_the_reference(n):
     """``build_tree`` and ``build_tree_fused`` on CPU tensors (the plain
     version) against the reference's fused tree, word for word; a single
     leaf is its own root and has no internal level."""
     leaves = words(30 + n, (n, 8))
-    want = rm.to_host(rm.build_tree_fused(jnp.asarray(leaves)))
+    want = stored_levels(f"tree_{n}")
     for build in (pm.build_tree, pm.build_tree_fused):
         got = build(t(leaves))
         assert len(got) == len(want) == n.bit_length()
@@ -208,29 +262,23 @@ def test_grind_on_a_card_is_one_entry_point_call(monkeypatch):
     assert calls == [("p2_grind", state, 12, 0, pp.GRIND_LIMIT)]
 
 
-@pytest.mark.parametrize("bits", [0, 1, 2, 8])
+@pytest.mark.parametrize("bits", GRIND_BITS)
 def test_grind_nonce(bits):
     """Same transcript state, same lowest hitting nonce, same next draw,
     from ``Challenger.grind`` and from ``grind_plain`` on the sponge state
     it searches.  The trial batch (2^(bits+2) states) differs per case;
-    the nonce does not depend on it.  (bits=1 reuses the [8, 16]
-    permutation compiled above.)"""
-    def transcript(cls):
-        c = cls()
-        c.observe_many([7, 11, bits])
-        c.sample()                  # duplexes: nothing is left pending
-        return c
-
-    ref = transcript(RefChallenger)
-    port = transcript(lambda: Challenger(device="cpu"))
+    the nonce does not depend on it.  The reference's nonce and next draw
+    are stored."""
+    ref_nonce, ref_sample = stored()[f"grind_{bits}"].tolist()
+    port = _transcript(lambda: Challenger(device="cpu"), bits)
     state = list(port._state)
     nonce = port.grind(bits)
-    assert nonce == ref.grind(bits)
+    assert nonce == ref_nonce
     if bits:
         assert nonce == pp.grind_plain(state, bits) \
             == pp.grind(state, bits, "cpu")
-    assert port.sample() == ref.sample()
-    assert transcript(Challenger).check_pow(nonce, bits)
+    assert port.sample() == ref_sample
+    assert _transcript(Challenger, bits).check_pow(nonce, bits)
 
 
 @pytest.mark.parametrize("bits", [1, 16])

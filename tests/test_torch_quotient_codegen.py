@@ -9,13 +9,17 @@ over the same tables of column addresses, challenge words and alpha
 powers that a launch reads, with the asynchronous copies into shared
 memory modelled; a statement the translation does not know fails.  The
 result must equal the port's ``VecAlg`` quotient and the reference's
-``quotient_evals`` (eager on the CPU, as the reference's tests run it)
-word for word, and broken copies of the text, a helper or the staging
-plan must not.  Inputs are random words from a numpy seed on a 32-point
+``quotient_evals`` (eager on the CPU, as the reference's tests run it;
+its words on these seeded inputs are stored in
+``tests/fixtures/torch_port/quotient_reference.npz`` by
+``make_fixtures.py quotient``, which runs ``_reference`` here) word for
+word, and broken copies of the text, a helper or the staging plan must
+not.  Inputs are random words from a numpy seed on a 32-point
 domain (log_n = 3, log_blowup = 2), in tiles of 16 points.
 """
 
 import functools
+import pathlib
 import re
 import types
 
@@ -34,6 +38,8 @@ from zkir_tpu_torch.prover.prover import _coset_shift
 from zkir_tpu_torch.prover.trace import N_COLUMNS
 
 P = (1 << 31) - 1
+REFERENCE = pathlib.Path(__file__).resolve().parent / "fixtures" / \
+    "torch_port" / "quotient_reference.npz"
 SEED = 20261016
 LOG_N, LOG_BLOWUP = 3, 2
 N = 1 << (LOG_N + LOG_BLOWUP)
@@ -48,7 +54,7 @@ def _small_torch_pool():
     """The suite runs several pytest workers on one machine; a torch
     intra-op thread per core in each of them would oversubscribe it."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -500,7 +506,6 @@ def _plain(inputs):
                              alpha, **args)
 
 
-@pytest.fixture(scope="module")
 def reference_terms():
     """The reference's ``VecAlg`` and terms for every argument and the
     program bound, on the CPU (eager, as its tests run it).  Without the
@@ -525,7 +530,8 @@ def reference_terms():
 
 def _reference(reference_terms, features):
     """The reference's quotient, ``_accumulate_quotient`` over the terms
-    of ``features`` (what its ``quotient_evals`` returns)."""
+    of ``features`` (what its ``quotient_evals`` returns); stored for each
+    feature set by ``make_fixtures.py quotient``."""
     A, terms = reference_terms
     n_terms = {OFF: 721, ON: 884, BOUND: 887}[features]
     alpha = _inputs(features, SEED)[3]
@@ -543,15 +549,22 @@ def _equal(got, want):
         assert torch.equal(g, w)
 
 
+def stored_reference(name):
+    """The reference's quotient of feature set ``name`` (``_reference``),
+    as stored."""
+    with np.load(REFERENCE) as stored:
+        return tuple(torch.from_numpy(c) for c in stored[name])
+
+
 @pytest.mark.parametrize("name", sorted(FEATURE_SETS))
-def test_generated_source_equals_both_quotients(reference_terms, name):
+def test_generated_source_equals_both_quotients(name):
     """The generated parts, the port's ``VecAlg`` path (the plain version
     CPU tensors take) and the reference: the same words at every point,
     without ``range_lookup``, with it, and with a program bound."""
     inputs = _inputs(FEATURE_SETS[name], SEED)
     got = _generated(FEATURE_SETS[name], inputs)
     _equal(got, _plain(inputs))
-    _equal(got, _reference(reference_terms, FEATURE_SETS[name]))
+    _equal(got, stored_reference(name))
 
 
 def test_a_tile_wider_than_the_domain():

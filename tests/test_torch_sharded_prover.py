@@ -111,7 +111,7 @@ def ranks(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("ranks")
     ckpt = {w: tmp_path_factory.mktemp(f"ckpt{w}") for w in WORLDS}
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             spawns = [pool.submit(par.run_local_ranks, _rank_cases, world,

@@ -1,12 +1,15 @@
 """The port's column-streaming prover against the JAX package, tolerance 0.
 
 ``merkle.RowSponge`` (fed a column block at a time) against the port's
-``hash_rows`` and the reference's ``RowSponge``; the plain version of
-``p2_sponge_absorb`` from a non-zero state against the scalar
-``poseidon2_ref`` sponge; ``prove_trace_streaming`` on the CPU against the
-stored reference proofs of goldens C and E (the reference's one-shot
-proofs: its own tests show its streaming proof is the same), with two
-block sizes, accepted by the port's verifier; a tampered trace refused;
+``hash_rows`` and the reference's ``RowSponge`` (its digests of the seeded
+rows stored in ``tests/fixtures/torch_port/row_sponge_reference.npz`` by
+``make_fixtures.py sponge``, which runs ``reference_row_sponge`` here);
+the plain version of ``p2_sponge_absorb`` from a non-zero state against
+the scalar ``poseidon2_ref`` sponge; ``prove_trace_streaming`` on the CPU
+against the stored reference proofs of goldens C and E (the reference's
+one-shot proofs: its own tests show its streaming proof is the same),
+with two block sizes, accepted by the port's verifier; a tampered trace
+refused;
 ``prove --streaming --checkpoint-dir`` refused (``mesh=``:
 ``tests/test_torch_sharded_prover.py``).
 """
@@ -29,6 +32,7 @@ from zkir_tpu_torch.prover.streaming import prove_trace_streaming
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
+SPONGE_REFERENCE = FIXTURES / "row_sponge_reference.npz"
 P = (1 << 31) - 1
 
 
@@ -37,7 +41,7 @@ def _small_torch_pool():
     """The suite runs several pytest workers on one machine; a torch
     intra-op thread per core in each of them would oversubscribe it."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -64,7 +68,10 @@ def test_row_sponge_equals_hash_rows(splits):
     assert torch.equal(sponge.finalize(), merkle.hash_rows(matrix))
 
 
-def test_row_sponge_matches_reference():
+def reference_row_sponge():
+    """The reference's ``RowSponge`` digests of the seeded [8, 45] rows fed
+    in blocks of 13 and 32 columns (what ``make_fixtures.py sponge``
+    stores)."""
     import jax.numpy as jnp
 
     from zkir_tpu.ops.merkle import RowSponge as RefRowSponge
@@ -73,11 +80,17 @@ def test_row_sponge_matches_reference():
     ref = RefRowSponge(8)
     ref.absorb(jnp.asarray(matrix[:, :13].astype(np.uint32)))
     ref.absorb(jnp.asarray(matrix[:, 13:].astype(np.uint32)))
+    return np.asarray(ref.finalize())
+
+
+def test_row_sponge_matches_reference():
+    matrix = _words((8, 45), 11)
     port = merkle.RowSponge(8, device="cpu")
     port.absorb(torch.from_numpy(matrix[:, :13]))
     port.absorb(torch.from_numpy(matrix[:, 13:]))
-    np.testing.assert_array_equal(port.finalize().numpy(),
-                                  np.asarray(ref.finalize()))
+    with np.load(SPONGE_REFERENCE) as stored:
+        np.testing.assert_array_equal(port.finalize().numpy(),
+                                      stored["digests"])
 
 
 @pytest.mark.parametrize("width, pad", [(16, False), (13, True), (0, True)])

@@ -73,6 +73,10 @@ _SIGNATURES = {
     "b3_rows": (_P, _P, _P, _P, _P, _P, _N, _N),
     # cv (or null), words, counter lo, counter hi, block_len, flags, out, n
     "b3_compress": (_P, _P, _P, _P, _P, _P, _P, _N),
+    # x0..x3, y0..y3, a, b (each or null), out [4, R, n], host descriptor
+    "qm31_inv_scaled": (_P,) * 12,
+    # in0..in3, out [4, R, n], tile status (zero words), R, n, vec
+    "m31_exclusive_scan": (_P, _P, _P, _P, _P, _P, _N, _N, _I),
 }
 
 # One count per entry point; a module that builds kernels of its own

@@ -4,7 +4,7 @@ Counterpart of ``zkir_tpu/prover/constraints.py``.  The constraint system
 (``air_constraints`` .. ``quotient_terms``) is the reference's code,
 copied unchanged: it calls only the algebra object.  The port supplies a
 torch ``VecAlg`` for the prover's whole-domain evaluation; ``ScalarAlg``,
-``quotient_value_at`` and the divisor tables are host copies.  On CUDA
+``quotient_values_at`` and the divisor tables are host copies.  On CUDA
 tensors ``quotient_evals`` runs the counterpart of the reference's jitted
 quotient: the terms recorded once and generated as CUDA kernels
 (``quotient_codegen.py``); on CPU tensors the eager ``VecAlg`` path, the
@@ -114,8 +114,8 @@ from ..ops.ntt import (
     root_of_unity,
     _twiddle_table,
 )
-from ..ops.qm31 import _times_r, qm31_add, qm31_mul, qm31_mul_cm31, \
-    qm31_sub
+from ..ops.qm31 import _times_r, cm31_mul_np, qm31_add, qm31_mul, \
+    qm31_mul_cm31, qm31_mul_np, qm31_powers_np, qm31_sub
 
 from ..spec.field import M31_PRIME
 
@@ -709,7 +709,9 @@ class VecAlg:
 
 
 class ScalarAlg:
-    """Single-point evaluation from opened rows.
+    """Evaluation at opened points from their opened rows: a word is a
+    Python int, or a numpy object array of them, one a point
+    (``quotient_values_at``).
 
     Committed rows INTERLEAVE each CM31 column's (re, im) pair
     (prover._interleave_rows — the layout a column-streaming commit
@@ -2334,14 +2336,20 @@ def _alpha_powers_np(alpha, n_terms: int) -> np.ndarray:
     return pw
 
 
-def quotient_value_at(row, next_row, n_cols: int, index: int, log_n: int,
-                      log_blowup: int, shift: Tuple[int, int],
-                      alpha: Tuple[int, int], lookup=None, aux=None,
-                      program=None, memory=None, io=None, crypto=None):
-    """Scalar Q(x_index) recomputed from opened rows (verifier side).
+def quotient_values_at(rows, next_rows, n_cols: int, indices, log_n: int,
+                       log_blowup: int, shift: Tuple[int, int],
+                       alpha: Tuple[int, int], lookup=None, aux=None,
+                       program=None, memory=None, io=None, crypto=None):
+    """Q(x_j) recomputed from opened rows (verifier side), for every point
+    j of ``indices`` at once: a list of QM31 4-tuples.  ``rows`` and
+    ``next_rows`` hold one opened trace row per point, as do the row lists
+    inside ``lookup``, ``aux`` and ``program``.  The terms are evaluated
+    once, by ``ScalarAlg`` over numpy object arrays (a Python int a point),
+    then weighed by the points' divisor inverses and the alpha powers as
+    int64 arrays [term, point].
 
-    ``lookup``: optional (s_row, s_next, beta).
-    ``aux``: optional (aux_row, eta); its partial sums are sums columns
+    ``lookup``: optional (s_rows, s_nexts, beta).
+    ``aux``: optional (aux_rows, eta); its partial sums are sums columns
     NUM_LOOKUP..NUM_LOOKUP+NUM_AUX.
     ``memory``: optional (delta, d_init); its partial sums are sums
     columns NUM_LOOKUP + NUM_AUX and + 1.
@@ -2349,13 +2357,21 @@ def quotient_value_at(row, next_row, n_cols: int, index: int, log_n: int,
     NUM_LOOKUP + NUM_AUX + 2 and + 3.
     ``crypto``: optional (delta, d_crypto); its slot inverses and tape
     S/F are sums columns NUM_LOOKUP + NUM_AUX + 4 .. + 4 + N_CR_SUMS.
-    ``program``: optional (prog_row, gamma, entry); its partial sum is
+    ``program``: optional (prog_rows, gamma, entry); its partial sum is
     the last sums column."""
+    if not indices:
+        return []
+
+    def words(opened):
+        """One opened row a point -> object array [width, points]."""
+        return np.array(opened, dtype=object).T
+
     s_row = s_next = prog_row = aux_row = None
     n_sums = 0
     lk = ak = mk = pk = ik = ck = None
     if lookup is not None:
-        s_row, s_next, beta = lookup
+        s_rows, s_nexts, beta = lookup
+        s_row, s_next = words(s_rows), words(s_nexts)
         n_sums = (NUM_LOOKUP
                   + (NUM_AUX if aux is not None else 0)
                   + (2 if memory is not None else 0)
@@ -2364,7 +2380,8 @@ def quotient_value_at(row, next_row, n_cols: int, index: int, log_n: int,
                   + (1 if program is not None else 0))
         lk = beta
     if aux is not None:
-        aux_row, eta = aux
+        aux_rows, eta = aux
+        aux_row = words(aux_rows)
         ak = (beta, eta)
     if memory is not None:
         delta, d_init = memory
@@ -2376,37 +2393,48 @@ def quotient_value_at(row, next_row, n_cols: int, index: int, log_n: int,
         delta_c, d_crypto = crypto
         ck = (beta, delta_c, d_crypto)
     if program is not None:
-        prog_row, gamma, entry = program
+        prog_rows, gamma, entry = program
+        prog_row = words(prog_rows)
         pk = (beta, gamma, entry)
-    A = ScalarAlg(row, next_row, n_cols, s_row=s_row, s_next=s_next,
-                  n_sums=n_sums, prog_row=prog_row, aux_row=aux_row)
+    A = ScalarAlg(words(rows), words(next_rows), n_cols, s_row=s_row,
+                  s_next=s_next, n_sums=n_sums, prog_row=prog_row,
+                  aux_row=aux_row)
     terms = quotient_terms(A, lookup=lk, aux=ak, memory=mk, program=pk,
                            io=ik, crypto=ck)
 
-    from ..ops.qm31 import qm31_add_scalar, qm31_mul_cm31_scalar, \
-        qm31_mul_scalar
-
     n = 1 << log_n
-    x = cm31_mul_scalar(shift,
-                        cm31_pow_scalar(root_of_unity(log_n + log_blowup),
-                                        index))
-    zh = A.sub(cm31_pow_scalar(x, n), (1, 0))
+    root = root_of_unity(log_n + log_blowup)
     last = cm31_pow_scalar(root_of_unity(log_n), n - 1)
-    x_last = A.sub(x, last)
-    dinv = {
-        "H": cm31_inv_scalar(zh),
-        "T": cm31_inv_scalar(cm31_mul_scalar(zh, cm31_inv_scalar(x_last))),
-        "F": cm31_inv_scalar(A.sub(x, (1, 0))),
-        "L": cm31_inv_scalar(x_last),
-    }
-    acc = (0, 0, 0, 0)
-    power = (1, 0, 0, 0)
-    for tag, c in terms:
-        cq = (c[0], c[1], 0, 0) if len(c) == 2 else c
-        term = qm31_mul_scalar(qm31_mul_cm31_scalar(cq, dinv[tag]), power)
-        acc = qm31_add_scalar(acc, term)
-        power = qm31_mul_scalar(power, alpha)
-    return acc
+    dinv = {tag: [] for tag in "HTFL"}
+    for index in indices:
+        x = cm31_mul_scalar(shift, cm31_pow_scalar(root, index))
+        zh = A.sub(cm31_pow_scalar(x, n), (1, 0))
+        x_last = A.sub(x, last)
+        dinv["H"].append(cm31_inv_scalar(zh))
+        dinv["T"].append(cm31_inv_scalar(
+            cm31_mul_scalar(zh, cm31_inv_scalar(x_last))))
+        dinv["F"].append(cm31_inv_scalar(A.sub(x, (1, 0))))
+        dinv["L"].append(cm31_inv_scalar(x_last))
+    dinv = {tag: np.array(v, dtype=np.int64).T for tag, v in dinv.items()}
+
+    # sum_k alpha^k (c_k dinv[tag_k]) over the terms, as int64 arrays
+    # [term, point] (one numpy pass, not a Python loop of QM31 products).
+    k = len(indices)
+
+    def point_words(v):
+        return np.broadcast_to(np.asarray(v, dtype=object).astype(np.int64)
+                               % P, (k,))
+
+    zero = np.zeros(k, dtype=np.int64)
+    cq = np.stack([np.stack([point_words(c[i]) if i < len(c) else zero
+                             for i in range(4)]) for _, c in terms], axis=1)
+    d = np.stack([dinv[tag] for tag, _ in terms], axis=1)
+    weighted = qm31_mul_np(
+        np.concatenate([cm31_mul_np(cq[:2], d), cm31_mul_np(cq[2:], d)]),
+        qm31_powers_np(tuple(int(a) % P for a in alpha),
+                       len(terms))[:, :, None])
+    acc = weighted.sum(axis=1) % P
+    return [tuple(int(v) for v in acc[:, p]) for p in range(k)]
 
 
 def diagnose_violations(ext_r, ext_i, log_n: int, log_blowup: int,

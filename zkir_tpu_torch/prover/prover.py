@@ -58,14 +58,15 @@ from ..ops.ntt import (
     lde,
     root_of_unity,
 )
-from ..ops.qm31 import (qm31_add, qm31_add_scalar, qm31_batch_inv,
-                        qm31_mul_cm31_scalar, qm31_mul_scalar, qm31_sub)
+from ..ops.qm31 import (cm31_mul_np, exclusive_cumsum4, qm31_add,
+                        qm31_add_scalar, qm31_batch_inv, qm31_inv_scaled,
+                        qm31_mul_cm31_scalar, qm31_mul_scalar, qm31_powers_np)
 from ..parallel.distributed import all_gather_rows, cols_to_rows, dist_lde
 from ..spec.field import M31_PRIME
 from .aux_table import N_AUX_COLS, aux_table_columns
 from .challenger import Challenger
 from .constraints import (NUM_AUX, NUM_LOOKUP, diagnose_violations,
-                          quotient_evals, quotient_value_at)
+                          quotient_evals, quotient_values_at)
 from .fri import FriConfig, fri_prove, fri_verify
 
 P = M31_PRIME
@@ -363,27 +364,10 @@ def _beta_minus_compress_np(components, beta, delta):
                      .astype(np.uint32) for k in range(4)])
 
 
-def _qscale_m31(x4, m):
-    """QM31 vector times an M31-valued vector (componentwise)."""
-    return tuple(m31_mul(c, m) for c in x4)
-
-
-def _exclusive_cumsum4(term4):
-    """Exclusive prefix sums mod p along the last axis, per component.
-
-    int64 cumsum is exact for < 2^33 terms (each < 2^31)."""
-    out = []
-    for c in term4:
-        cum = torch.cumsum(c, dim=-1) % P
-        s = torch.zeros_like(cum)
-        s[..., 1:] = cum[..., :-1]
-        out.append(s)
-    return tuple(out)
-
-
 def _masked_inv_kernel(bw4, mask):
-    """mask / bw over QM31 (batched inversion; zero maps to zero)."""
-    return _qscale_m31(qm31_batch_inv(bw4), mask)
+    """mask / bw over QM31 (batched inversion; zero maps to zero): one
+    ``qm31_inv_scaled`` on a GPU."""
+    return qm31_inv_scaled(bw4, mask)
 
 
 def _qm31_inv_sum_kernel(w4):
@@ -431,22 +415,24 @@ def memory_init_demand(program, beta, delta, *, device):
 
 
 def _memory_partial_sum_kernel(w4, t4, v, real):
-    n = v.shape[0]
-    inv = qm31_batch_inv(tuple(torch.cat([w4[k], t4[k]]) for k in range(4)))
-    inv_w = tuple(c[:n] for c in inv)
-    inv_t = tuple(c[n:] for c in inv)
-    term = qm31_sub(_qscale_m31(inv_w, v), _qscale_m31(inv_t, real))
-    return _exclusive_cumsum4(term), term
+    """term = v/w - real/t per row (one ``qm31_inv_scaled``), with its
+    exclusive prefix sums (one ``exclusive_cumsum4``)."""
+    term = qm31_inv_scaled(w4, v, t4, real, subtract=True)
+    return exclusive_cumsum4(term), term
 
 
 def _memory_partial_sum(cols, beta, delta):
-    """The memory-update multiset partial-sum column (QM31 4-tuple [n]):
+    """The memory-update multiset's per-row term F (QM31 4-tuple [n]),
+    F_i = v_i/(beta - w_i) - real_i/(beta - t_i), whose exclusive prefix
+    sums are the partial-sum column S:
 
-    s[0] = 0; s[i+1] = s[i] + v_i/(beta - w_i) - real_i/(beta - t_i)
+    s[0] = 0; s[i+1] = s[i] + F_i
 
     where w/t delta-compress the 19-component exec-row and table update
     tuples; the telescope closes against -d_init at the last row
-    (boundary constraint, constraints.memory_multiset)."""
+    (boundary constraint, constraints.memory_multiset).  Only F is
+    returned: the sums columns add the crypto slots' demands to F before
+    they scan it (``_sums_columns``)."""
     from .constraints import COL_OPCODE, LOAD_OPS, M_REAL, STORE_OPS
 
     w_comp, t_comp = _mem_tuple_components(cols)
@@ -455,9 +441,7 @@ def _memory_partial_sum(cols, beta, delta):
     mem_ops = torch.tensor(LOAD_OPS + STORE_OPS, dtype=torch.int64,
                            device=cols.device)
     v = torch.isin(cols[COL_OPCODE], mem_ops).to(torch.int64)
-    # S (partial sums, exclusive) and F (the per-row terms, their own
-    # committed column so the boundary constraints stay degree <= 1).
-    return _memory_partial_sum_kernel(w4, t4, v, cols[M_REAL])
+    return qm31_inv_scaled(w4, v, t4, cols[M_REAL], subtract=True)
 
 
 def _observe_io(challenger, inputs, outputs) -> None:
@@ -514,12 +498,8 @@ def io_tape_demand(inputs, outputs, beta, delta, *, device):
 def _two_sided_sum_kernel(wr4, ww4, num_r, num_w):
     """F = num_r/(wr) + num_w/(ww) per row, with its exclusive prefix
     sums (both QM31)."""
-    n = num_r.shape[0]
-    inv = qm31_batch_inv(tuple(torch.cat([wr4[k], ww4[k]])
-                               for k in range(4)))
-    term = qm31_add(_qscale_m31(tuple(c[:n] for c in inv), num_r),
-                    _qscale_m31(tuple(c[n:] for c in inv), num_w))
-    return _exclusive_cumsum4(term), term
+    term = qm31_inv_scaled(wr4, num_r, ww4, num_w)
+    return exclusive_cumsum4(term), term
 
 
 def _io_partial_sum(cols, beta, delta):
@@ -691,7 +671,7 @@ def _crypto_tape_partial_sum(cols, beta, delta):
     comps += [cols[COL_CWD0 + k] for k in range(8 * N_WRITE_SLOTS)]
     bw4 = _beta_minus_compress(comps, beta, delta)
     f4 = _masked_inv_kernel(bw4, cols[COL_ECR])
-    return _exclusive_cumsum4(f4), f4
+    return exclusive_cumsum4(f4), f4
 
 
 def _channel_witnesses(padded: np.ndarray) -> np.ndarray:
@@ -737,17 +717,15 @@ def _build_lookup_columns(padded: np.ndarray, witnesses: np.ndarray):
 def _channel_sum_kernel(witnesses, t, m, beta):
     """All plain lookup channels at once: witnesses [n_ch, n], table t
     [n], multiplicities m [n_ch, n], beta a host QM31 4-tuple.
-    Term: 1/(beta - w) - m/(beta - t); S = exclusive cumsum."""
+    Term: 1/(beta - w) - m/(beta - t); S = exclusive cumsum.  beta's
+    coordinates 1-3 are constants, and t is one row for every channel
+    (``qm31_inv_scaled`` inverts it once per column)."""
     n_ch = witnesses.shape[0]
-    stacked = torch.cat([witnesses, t[None, :]], dim=0)
-    d4 = (m31_sub(int(beta[0]) % P, stacked),
-          *(torch.full_like(stacked, int(beta[k]) % P)
-            for k in range(1, 4)))
-    inv = qm31_batch_inv(d4)
-    iw = tuple(c[:n_ch] for c in inv)
-    it = tuple(c[n_ch:] for c in inv)          # [1, n]: broadcasts
-    term = qm31_sub(iw, _qscale_m31(it, m))
-    return _exclusive_cumsum4(term), term
+    d0 = m31_sub(int(beta[0]) % P, torch.cat([witnesses, t[None, :]]))
+    rest = tuple(int(beta[k]) % P for k in range(1, 4))
+    term = qm31_inv_scaled((d0[:n_ch], *rest), 1, (d0[n_ch:], *rest), m,
+                           subtract=True)
+    return exclusive_cumsum4(term), term
 
 
 def _build_partial_sums(cols, witnesses, beta):
@@ -788,13 +766,9 @@ def _build_aux_partial_sums(cols, aux_cols, beta, eta):
 
 
 def _aux_sum_kernel(bw4, bt4, m):
-    n_ch = m.shape[0]
-    inv = qm31_batch_inv(tuple(torch.cat([bw4[k], bt4[k]], dim=0)
-                               for k in range(4)))
-    iw = tuple(c[:n_ch] for c in inv)
-    it = tuple(c[n_ch:] for c in inv)
-    term = qm31_sub(iw, _qscale_m31(it, m))
-    return _exclusive_cumsum4(term), term
+    """term = 1/bw - m/bt per channel and row, and S = exclusive cumsum."""
+    term = qm31_inv_scaled(bw4, 1, bt4, m, subtract=True)
+    return exclusive_cumsum4(term), term
 
 
 CODE_BASE = 0x1000
@@ -901,7 +875,7 @@ def _program_partial_sum(cols, prog_cols, beta, gamma):
     bt4 = _beta_minus_compress(list(prog_cols[:4]), beta, gamma)
     m = cols[COL_PROG_M]
     # term = 1/(beta - w) - m/(beta - t): the memory kernel's shape.
-    (s4, _f4) = _memory_partial_sum_kernel(bw4, bt4, torch.ones_like(m), m)
+    (s4, _f4) = _memory_partial_sum_kernel(bw4, bt4, 1, m)
     return s4
 
 
@@ -1130,13 +1104,13 @@ def _sums_columns(cols, witnesses, aux_pre, prog, beta, gamma, delta, eta):
     s_chan = _build_partial_sums(cols, witnesses, beta)
     s_aux = _build_aux_partial_sums(cols, aux_pre["cols_dev"], beta, eta)
     slot_inv4 = _crypto_slot_inverses(cols, beta, delta)
-    _sm4, fm4 = _memory_partial_sum(cols, beta, delta)
+    fm4 = _memory_partial_sum(cols, beta, delta)
     # The memory F column carries the crypto-slot demands too
-    # (constraints.memory_multiset slot_sum); fold them in and rebuild its
+    # (constraints.memory_multiset slot_sum); fold them in, then take its
     # exclusive prefix sums (an int64 sum over the slots is exact).
     slot_total = tuple(c.sum(dim=0) % P for c in slot_inv4)
     fm4 = qm31_add(fm4, slot_total)
-    sm4 = _exclusive_cumsum4(fm4)
+    sm4 = exclusive_cumsum4(fm4)
     si4, fi4 = _io_partial_sum(cols, beta, delta)
     scr4, fcr4 = _crypto_tape_partial_sum(cols, beta, delta)
     groups = [s_chan, s_aux,
@@ -1682,6 +1656,11 @@ def verify_trace(proof: Dict[str, Any], program=None, *, device) -> bool:
                 [e["path"] for _, e in opened[name]], log_big)):
             return False
 
+    # Every query point's index, recomputed Q value and opened rows (the
+    # constraint check's inputs), in query order.
+    points, q_at = [], []
+    opened_rows = {name: [] for name in ("rows", "next", "sums",
+                                         "sums next", "aux", "prog")}
     for steps, (k, vals) in zip(fri_proof["queries"], per_query):
         rows = vals["trace"]
         for j, fri_value in ((k, tuple(steps[0]["lo"])),
@@ -1690,53 +1669,57 @@ def verify_trace(proof: Dict[str, Any], program=None, *, device) -> bool:
             # every committed CM31 column (trace, 2*n_sums sums
             # coordinates, 4 quotient coordinates) times successive QM31
             # alpha_b powers.
-            acc = (0, 0, 0, 0)
-            power = (1, 0, 0, 0)
             batched = list(rows[j])
             if range_lookup:
                 batched += vals["sums"][j]
             qrow = vals["quotient"][j]
             batched += qrow
-            for c in range(len(batched) // 2):
-                term = qm31_mul_cm31_scalar(
-                    power, (batched[2 * c], batched[2 * c + 1]))
-                acc = qm31_add_scalar(acc, term)
-                power = qm31_mul_scalar(power, alpha_b)
+            # (re, im) pairs as int64 [2, C], weighed by the powers in one
+            # numpy pass.
+            pairs = np.asarray(batched, dtype=np.int64).reshape(-1, 2).T % P
+            pw = qm31_powers_np(tuple(int(a) % P for a in alpha_b),
+                                pairs.shape[1])
+            acc = tuple(int(v) % P for v in np.concatenate(
+                [cm31_mul_np(pw[:2], pairs),
+                 cm31_mul_np(pw[2:], pairs)]).sum(axis=1))
             if acc != fri_value:
                 return False
 
             # 2. Constraint check: Q(x_j) = Q0 + x^n Q1 must equal the
-            # recomputed combination of constraints at the opened rows.
+            # recomputed combination of constraints at the opened rows
+            # (every point's at once, below).
             jn = (j + blowup) % big
-            lookup_args = None
-            aux_args = None
-            memory_args = None
-            io_args = None
-            crypto_args = None
-            program_args = None
-            if range_lookup:
-                lookup_args = (vals["sums"][j], vals["sums"][jn], beta)
-                aux_args = (vals["aux"][j], eta)
-                memory_args = (delta, d_init)
-                io_args = (delta, d_io)
-                crypto_args = (delta, d_cr)
-            if prog_pub is not None:
-                program_args = (vals["prog"][j], gamma,
-                                int(prog_pub["entry"]))
-            expected_q = quotient_value_at(
-                rows[j], rows[jn], n_cols, j, log_n, config.log_blowup,
-                shift, alpha_c, lookup=lookup_args, aux=aux_args,
-                program=program_args, memory=memory_args, io=io_args,
-                crypto=crypto_args)
             x = cm31_mul_scalar(
                 shift, cm31_pow_scalar(root_of_unity(log_big), j))
             xn = cm31_pow_scalar(x, 1 << log_n)
             # QM31 chunks (chunk0_a, chunk0_b | chunk1_a, chunk1_b): CM31
             # coordinate pairs in q_rows order.
-            q_at = qm31_add_scalar(
+            q_at.append(qm31_add_scalar(
                 tuple(qrow[0:4]),
-                qm31_mul_cm31_scalar(tuple(qrow[4:8]), xn))
-            if q_at != expected_q:
-                return False
+                qm31_mul_cm31_scalar(tuple(qrow[4:8]), xn)))
+            points.append(j)
+            for name, at in (("rows", rows[j]), ("next", rows[jn])):
+                opened_rows[name].append(at)
+            if range_lookup:
+                opened_rows["sums"].append(vals["sums"][j])
+                opened_rows["sums next"].append(vals["sums"][jn])
+                opened_rows["aux"].append(vals["aux"][j])
+            if prog_pub is not None:
+                opened_rows["prog"].append(vals["prog"][j])
 
-    return True
+    lookup_args = aux_args = memory_args = io_args = crypto_args = None
+    program_args = None
+    if range_lookup:
+        lookup_args = (opened_rows["sums"], opened_rows["sums next"], beta)
+        aux_args = (opened_rows["aux"], eta)
+        memory_args = (delta, d_init)
+        io_args = (delta, d_io)
+        crypto_args = (delta, d_cr)
+    if prog_pub is not None:
+        program_args = (opened_rows["prog"], gamma, int(prog_pub["entry"]))
+    expected_q = quotient_values_at(
+        opened_rows["rows"], opened_rows["next"], n_cols, points, log_n,
+        config.log_blowup, shift, alpha_c, lookup=lookup_args,
+        aux=aux_args, program=program_args, memory=memory_args, io=io_args,
+        crypto=crypto_args)
+    return q_at == expected_q

@@ -26,7 +26,10 @@ generated kernels) takes each helper of ``csrc/m31.cuh`` and
 headers (``helper_instructions``): the helper applied in a dependent chain
 of 16 and of 8 calls, the difference over 8.  The NTT's
 (``ntt_instructions``) takes ``csrc/ntt.cu``'s product and a butterfly's
-sum and difference the same way.
+sum and difference the same way, and the LogUp partial sums'
+(``qm31_instructions``) one QM31 inversion of ``csrc/qm31.cu``, alone and
+in a batch that shares one exponent chain, as a chain of two less a chain
+of one.
 
 For a kernel whose loop body branches on its data (the interpreter's
 cycle loop, one path per opcode):
@@ -280,6 +283,55 @@ def crypto_instructions(nvcc: str, csrc, workdir) -> dict:
     straight-line code)."""
     return chain_instructions(nvcc, csrc, workdir, "crypto_probe",
                               crypto_source(), _CRYPTO_CHAINS, reps=(1, 2))
+
+
+def qm31_source() -> str:
+    """The probe of ``csrc/qm31.cu``'s QM31 inversion: kernels
+    ``probe_qm31_inv_<R>`` that invert a QM31 word R = 1 and R = 2 times
+    in a chain, and ``probe_qm31_inv_batch_<R>`` that invert a batch of
+    INV_BATCH words (one exponent chain) R times (straight-line code, the
+    M31 exponent chain unrolled)."""
+    lines = ['#include "qm31.cu"', ""]
+    for reps in (1, 2):
+        lines += [
+            f'extern "C" __global__ void probe_qm31_inv_{reps}(',
+            "    const uint32_t* in, uint32_t* o) {",
+            "    const int t = threadIdx.x;",
+            "    qm31 x = {{in[t], in[t + 32]}, {in[t + 64], in[t + 96]}};",
+            "#pragma unroll",
+            f"    for (int r = 0; r < {reps}; ++r) x = qm31_inv(x);",
+            "    o[t] = x.a.re ^ x.a.im ^ x.b.re ^ x.b.im;", "}", "",
+            f'extern "C" __global__ void probe_qm31_inv_batch_{reps}(',
+            "    const uint32_t* in, uint32_t* o) {",
+            "    const int t = threadIdx.x;",
+            "    qm31 x[INV_BATCH];",
+            "#pragma unroll",
+            "    for (int k = 0; k < INV_BATCH; ++k)",
+            "        x[k] = {{in[t + 128 * k], in[t + 128 * k + 32]},",
+            "                {in[t + 128 * k + 64], in[t + 128 * k + 96]}};",
+            "#pragma unroll",
+            f"    for (int r = 0; r < {reps}; ++r) qm31_inv_batch(x);",
+            "    uint32_t h = 0;",
+            "#pragma unroll",
+            "    for (int k = 0; k < INV_BATCH; ++k)",
+            "        h ^= x[k].a.re ^ x[k].a.im ^ x[k].b.re ^ x[k].b.im;",
+            "    o[t] = h;", "}", ""]
+    return "\n".join(lines)
+
+
+def qm31_instructions(nvcc: str, csrc, workdir) -> dict:
+    """Instructions one thread executes for one QM31 inversion in
+    ``csrc/qm31.cu`` as built for sm_90a: ``qm31_inv`` alone (the norms,
+    the 38 products of the M31 exponent chain, the products back out), and
+    ``qm31_inv_batch`` an element of a batch of INV_BATCH that shares one
+    chain."""
+    batch = int(re.search(r"constexpr int INV_BATCH = (\d+);",
+                          (pathlib.Path(csrc) / "qm31.cu").read_text())[1])
+    out = chain_instructions(nvcc, csrc, workdir, "qm31_probe",
+                             qm31_source(), ["qm31_inv", "qm31_inv_batch"],
+                             reps=(1, 2))
+    out["qm31_inv_batch"] /= batch
+    return out
 
 
 def dynamic_instructions(ins, trips) -> collections.Counter:
